@@ -5,10 +5,11 @@ Usage: python examples/grid_stitch.py out.jpg a.png b.png c.jpg d.png
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from image_stitch_tpu import concat_to_file
+from image_stitch import concat_to_file
 
 if len(sys.argv) >= 3:
     out, *inputs = sys.argv[1:]
@@ -17,7 +18,7 @@ else:
     import numpy as np
 
     rng = np.random.default_rng(0)
-    out = "/tmp/grid_stitch_demo.jpg"
+    out = os.path.join(tempfile.gettempdir(), "grid_stitch_demo.jpg")
     inputs = [
         rng.integers(0, 256, (128, 128, 4), dtype=np.uint8) for _ in range(4)
     ]  # raw pixel arrays are first-class inputs

@@ -5,10 +5,11 @@ Usage: python examples/positioned_composite.py out.png bg.png sprite.png
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from image_stitch_tpu import PositionedImage, concat_to_file
+from image_stitch import PositionedImage, concat_to_file
 
 if len(sys.argv) >= 4:
     out, bg, sprite = sys.argv[1:4]
@@ -16,7 +17,7 @@ else:
     # Self-demo (no args): solid background + semi-transparent sprite.
     import numpy as np
 
-    out = "/tmp/positioned_demo.png"
+    out = os.path.join(tempfile.gettempdir(), "positioned_demo.png")
     bg = np.full((180, 240, 4), (30, 60, 120, 255), dtype=np.uint8)
     sprite = np.full((64, 64, 4), (250, 200, 40, 160), dtype=np.uint8)
 concat_to_file(

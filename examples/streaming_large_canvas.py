@@ -6,6 +6,7 @@ Usage: python examples/streaming_large_canvas.py out.png
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -13,7 +14,7 @@ import zlib
 
 import numpy as np
 
-from image_stitch_tpu import (
+from image_stitch import (
     CoreStreamingConcatenator,
     ImageSource,
     PngHeader,
@@ -37,7 +38,7 @@ def make_tile(i: int):
     return ImageSource(width=512, height=512, factory=factory, format="png")
 
 
-out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/streaming_demo.png"
+out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(tempfile.gettempdir(), "streaming_demo.png")
 core = CoreStreamingConcatenator(
     {
         "inputs": [make_tile(i) for i in range(64)],  # 4 x 16 grid, 2048x8192

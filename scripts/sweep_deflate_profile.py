@@ -2,8 +2,8 @@
 """Interleaved sweep of the level-6 deflate profile knobs.
 
 Builds one .so per variant (same source, -DDEFL_L6_* overrides), loads
-them all in ONE process, and alternates timed runs per round — the only
-A/B protocol this host's frequency swings allow (CLAUDE.md). Reports
+them all in ONE process, and alternates timed runs per round, so clock
+swings on a shared host hit every variant alike. Reports
 CPU-time MB/s and output size per variant plus zlib-6's size (the ratio
 contract: stay at-or-under zlib-6 on bench content).
 
@@ -18,6 +18,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -30,7 +31,7 @@ from bench_inflate import make_payload  # noqa: E402
 
 SRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "image_stitch_tpu", "native", "stitchnative.cpp",
+    "image_stitch", "native", "stitchnative.cpp",
 )
 
 DEFAULT_VARIANTS = (
@@ -46,7 +47,7 @@ DEFAULT_VARIANTS = (
 
 def build_variant(name: str, chain: int, maxlazy: int, nice: int,
                   shift: int) -> str:
-    path = f"/tmp/defl_sweep_{name}.so"
+    path = os.path.join(tempfile.gettempdir(), f"defl_sweep_{name}.so")
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC",
         f"-DDEFL_L6_CHAIN={chain}", f"-DDEFL_L6_MAXLAZY={maxlazy}",

@@ -9,8 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from image_stitch_tpu.codecs.jpeg import libjpeg_exact as oracle
-from image_stitch_tpu.ops import jpeg_idct_device as dev
+from image_stitch.codecs.jpeg import libjpeg_exact as oracle
+from image_stitch.ops import jpeg_idct_device as dev
 
 
 def _oracle_idct(coefq: np.ndarray) -> np.ndarray:
@@ -144,16 +144,14 @@ def test_dezigzag_pad_t_matches_row_form(k):
 
 
 @pytest.mark.parametrize("by,bx", [(1, 1), (4, 7), (3, 128)])
-def test_assemble_plane_padasm_matches_transpose(monkeypatch, by, bx):
-    """STITCH_TPU_DECODE_PADASM=force (interior-pad column interleave +
-    major-axis transpose) is byte-identical to the default transpose
-    assembly, jitted and eager."""
+def test_assemble_plane_matches_block_layout(by, bx):
+    """plane[8i + r, 8j + c] == pix[r, c, i*bx + j], jitted and eager."""
     rng = np.random.default_rng(7)
     pix = rng.integers(0, 256, (8, 8, by * bx), dtype=np.uint8)
-    ref = np.transpose(pix.reshape(8, 8, by, bx), (2, 0, 3, 1)).reshape(
-        by * 8, bx * 8
-    )
-    monkeypatch.setenv("STITCH_TPU_DECODE_PADASM", "force")
+    ref = np.empty((by * 8, bx * 8), np.uint8)
+    for i in range(by):
+        for j in range(bx):
+            ref[8 * i : 8 * i + 8, 8 * j : 8 * j + 8] = pix[:, :, i * bx + j]
     got = dev._assemble_plane_t(jnp.asarray(pix), by, bx, jnp)
     assert got.dtype == jnp.uint8
     np.testing.assert_array_equal(np.asarray(got), ref)
@@ -224,7 +222,7 @@ def test_decode_rgb_trace_matches_owned_decoder(sampling):
     """Fused device decode trace == the owned host decoder's pixels (which
     are PIL/libjpeg bit-identical by the round-4 contract) on real encoded
     streams at every sampling, including non-MCU-aligned edges."""
-    from image_stitch_tpu.codecs.jpeg.owned_decoder import (
+    from image_stitch.codecs.jpeg.owned_decoder import (
         decode_baseline_jpeg,
         decode_coefficients,
     )
@@ -250,7 +248,7 @@ def test_decode_rgb_trace_matches_owned_decoder(sampling):
 
 
 def test_decode_rgb_trace_gray():
-    from image_stitch_tpu.codecs.jpeg.owned_decoder import (
+    from image_stitch.codecs.jpeg.owned_decoder import (
         decode_baseline_jpeg,
         decode_coefficients,
     )
@@ -277,7 +275,7 @@ def test_decode_rgb_trace_gray():
 def test_ycbcr_int_packed_matches_interleaved():
     """The encoder-side packed ingest (ycbcr_int on (H, W) uint32 bands)
     must equal the interleaved form channel for channel."""
-    from image_stitch_tpu.ops.jpeg_dct import ycbcr_int
+    from image_stitch.ops.jpeg_dct import ycbcr_int
 
     rng = np.random.default_rng(21)
     rgba = rng.integers(0, 256, (24, 40, 4), dtype=np.uint8)
@@ -294,7 +292,7 @@ def test_ycbcr_int_packed_matches_interleaved():
 def test_decode_band_trace_packed_is_bitcast_of_rgba(gray):
     """_decode_band_trace(packed=True) must be the exact little-endian
     uint32 pack of the RGBA output (same bytes, no relayout drift)."""
-    from image_stitch_tpu.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    from image_stitch.codecs.jpeg.device_decoder import DeviceJpegDecoder
     import io
 
     from PIL import Image

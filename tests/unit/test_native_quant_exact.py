@@ -4,7 +4,7 @@ The C++ tier (native/stitchnative.cpp jpeg_quant_band_444, including the
 16-bit two-block AVX2 path) must produce bit-identical quantized blocks to
 ops/jpeg_dct.band_to_blocks_islow — that equality is the cross-tier JPEG
 byte-identity contract (SURVEY §7 exactness invariants; reference being
-replaced: /root/reference's Rust jpeg-encoder-wasm encode path).
+replaced: the reference's Rust jpeg-encoder-wasm encode path).
 
 Content is adversarial for the fixed-point range proof: full-range noise,
 saturated checkerboards/stripes (maximal AC energy), and flat extremes.
@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from image_stitch_tpu import native
-from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
-from image_stitch_tpu.ops.jpeg_dct import band_to_blocks_islow
+from image_stitch import native
+from image_stitch.codecs.jpeg.tables import quality_scaled_tables
+from image_stitch.ops.jpeg_dct import band_to_blocks_islow
 
 pytestmark = pytest.mark.skipif(
     native.get_native_lib() is None, reason="native tier unavailable"

@@ -1,59 +1,19 @@
-"""Pallas kernel tests (interpret mode on CPU; same code compiles via
-Mosaic on TPU)."""
+"""The phase-1 pack kernel (ops/pallas_kernels.py): in Pallas interpret
+mode on the CPU it must match the plain XLA form bit for bit; compiled for
+the GPU, the `gpu` test does the same at a real band width."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
-from image_stitch_tpu.ops.pallas_kernels import filter_select_pallas
-from image_stitch_tpu.ops.png_filter import filter_select_band
+from image_stitch.ops.jpeg_entropy_device import _pack_blocks_aligned
+from image_stitch.ops.pallas_kernels import PACK_LANES, pack_blocks_aligned_pallas
 
 
-@pytest.mark.parametrize("shape", [(16, 512), (13, 260), (64, 1024)])
-@pytest.mark.parametrize("bpp", [3, 4, 8])
-def test_filter_select_pallas_matches_oracle(shape, bpp):
-    rng = np.random.default_rng(shape[0] * bpp)
-    raw = rng.integers(0, 256, shape, dtype=np.uint8)
-    prev = rng.integers(0, 256, shape[1], dtype=np.uint8)
-    types, filtered, last = filter_select_pallas(raw, prev, bpp, interpret=True)
-    exp_types, exp_filtered = filter_select_band(raw, prev, bpp)
-    np.testing.assert_array_equal(np.asarray(types), exp_types)
-    np.testing.assert_array_equal(np.asarray(filtered), exp_filtered)
-    np.testing.assert_array_equal(np.asarray(last), raw[-1])
-
-
-def test_filter_select_pallas_no_prev():
-    rng = np.random.default_rng(0)
-    raw = rng.integers(0, 256, (24, 400), dtype=np.uint8)
-    types, filtered, _ = filter_select_pallas(raw, None, 4, interpret=True)
-    exp_types, exp_filtered = filter_select_band(raw, None, 4)
-    np.testing.assert_array_equal(np.asarray(types), exp_types)
-    np.testing.assert_array_equal(np.asarray(filtered), exp_filtered)
-
-
-def test_pallas_enabled_gate(monkeypatch):
-    from image_stitch_tpu.ops.pallas_kernels import pallas_enabled
-
-    monkeypatch.delenv("STITCH_TPU_PALLAS", raising=False)
-    assert not pallas_enabled()
-    monkeypatch.setenv("STITCH_TPU_PALLAS", "1")
-    # CPU platform in the test suite: stays off (interpret mode is test-only).
-    assert not pallas_enabled()
-
-
-@pytest.mark.parametrize(
-    "nb,n_sym,lw,seed",
-    [(596, 43, 12, 0), (262, 41, 9, 1), (694, 3, 8, 2), (10, 11, 13, 3),
-     (512, 65, 16, 4)],
-)
-def test_pack_blocks_aligned_pallas_matches_xla(nb, n_sym, lw, seed):
-    """Phase-1 pack kernel: bit-identical to the XLA fori_loop path on
-    random symbol streams (incl. zero-length symbols, odd symbol counts,
-    and non-zero start alignments)."""
-    from image_stitch_tpu.ops.jpeg_entropy_device import _pack_blocks_aligned
-    from image_stitch_tpu.ops.pallas_kernels import pack_blocks_aligned_pallas
-
+def _streams(nb, n_sym, lw, seed):
+    """Random symbol streams with zero-length symbols, blocks within the
+    local_words budget, and a non-zero start alignment."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, 17, size=(nb, n_sym)).astype(np.int32)
     lens[rng.random(lens.shape) < 0.3] = 0
@@ -62,41 +22,62 @@ def test_pack_blocks_aligned_pallas_matches_xla(nb, n_sym, lw, seed):
     over = lens.sum(axis=1) > lw * 32
     lens[over] = np.minimum(lens[over], 4)
     starts = (
-        np.cumsum(np.concatenate([[0], lens.sum(axis=1)[:-1]]))
-        .astype(np.int32)
+        np.cumsum(np.concatenate([[0], lens.sum(axis=1)[:-1]])).astype(np.int32)
         + int(rng.integers(0, 32))
     )
-    ref = np.asarray(
-        _pack_blocks_aligned(
-            jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(starts), lw,
-            transpose=False,
-        )
-    )
+    return jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(starts)
+
+
+def _check(nb, n_sym, lw, seed, interpret=True):
+    codes, lens, starts = _streams(nb, n_sym, lw, seed)
+    ref = np.asarray(_pack_blocks_aligned(codes, lens, starts, lw, transpose=False))
     got = np.asarray(
-        pack_blocks_aligned_pallas(
-            jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(starts), lw,
-            interpret=True,
-        )
+        pack_blocks_aligned_pallas(codes, lens, starts, lw, interpret=interpret)
     )
+    assert got.shape == ref.shape == (lw + 2, nb)
     np.testing.assert_array_equal(ref, got)
 
 
-@pytest.mark.parametrize("shape", [(64, 512), (37, 260)])
-def test_filter_select_pallas_sharded_matches_oracle(shape):
-    """The Pallas kernel in the mesh path (shard_map over 'band', VERDICT
-    r2 item 5): bit-identical to the host oracle on the CPU test mesh in
-    interpret mode. The row halo is materialized before the shard
-    boundary, so each shard's kernel is purely local."""
-    from image_stitch_tpu.parallel.mesh import make_mesh
+@pytest.mark.parametrize(
+    "nb,n_sym,lw,seed",
+    [(596, 43, 12, 0), (262, 41, 9, 1), (694, 3, 8, 2), (10, 11, 13, 3),
+     (512, 65, 16, 4)],
+)
+def test_pack_blocks_aligned_pallas_matches_xla(nb, n_sym, lw, seed):
+    """Bit-identical to the XLA fori_loop form on random symbol streams."""
+    _check(nb, n_sym, lw, seed)
 
-    mesh = make_mesh(8)
-    rng = np.random.default_rng(shape[0])
-    raw = rng.integers(0, 256, shape, dtype=np.uint8)
-    prev = rng.integers(0, 256, shape[1], dtype=np.uint8)
-    types, filtered, last = filter_select_pallas(
-        raw, prev, 4, interpret=True, mesh=mesh
-    )
-    exp_types, exp_filtered = filter_select_band(raw, prev, 4)
-    np.testing.assert_array_equal(np.asarray(types), exp_types)
-    np.testing.assert_array_equal(np.asarray(filtered), exp_filtered)
-    np.testing.assert_array_equal(np.asarray(last), raw[-1])
+
+@pytest.mark.parametrize("n_sym", [1, 64, 65, 66])
+def test_pack_kernel_symbol_counts(n_sym):
+    """Odd counts leave the last pair's second symbol masked out."""
+    _check(300, n_sym, 12, n_sym)
+
+
+@pytest.mark.parametrize("nb", [1, PACK_LANES - 1, PACK_LANES + 1, 3 * PACK_LANES])
+def test_pack_kernel_block_counts(nb):
+    """Block counts off the PACK_LANES tile: the tail program masks."""
+    _check(nb, 65, 12, nb)
+
+
+@pytest.mark.parametrize("lw", [12, 16, 24])
+def test_pack_kernel_encoder_budgets(lw):
+    """The local_words budgets the encoder uses (q<=85, q<=95, q100)."""
+    _check(700, 65, lw, lw)
+
+
+def test_pack_kernel_interprets_off_the_gpu():
+    """interpret=None interprets on the CPU instead of failing to compile."""
+    codes, lens, starts = _streams(40, 65, 12, 9)
+    ref = np.asarray(_pack_blocks_aligned(codes, lens, starts, 12, transpose=False))
+    got = np.asarray(pack_blocks_aligned_pallas(codes, lens, starts, 12))
+    np.testing.assert_array_equal(ref, got)
+
+
+@pytest.mark.gpu
+def test_pack_kernel_compiled_on_gpu_matches_xla():
+    """Compiled through Triton at the block count of a 512 x 8192 4:4:4
+    band (196,608 blocks)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this check there")
+    _check(512 * 8192 // 64 * 3, 65, 12, 0, interpret=False)
