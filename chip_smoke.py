@@ -5,12 +5,13 @@
     python chip_smoke.py --devices 4  # only the mesh path (mesh=4), on 4 GPUs
 
 Every phase drives the public streaming API (``concat_streaming``) at the
-sizes users stitch, runs once to compile, times a second (warm) run, and
-compares the output byte for byte with the same call under
-``backend="numpy"`` (the host tier, this system's reference: the pipeline
-is integer end to end, so any differing byte is a failure). Each phase
-prints one line with its evidence that the device did the work: which
-backend ``auto`` chose and the device-program counters of the run.
+sizes users stitch with ``backend="jax"`` (or ``mesh=4``), runs once to
+compile, times a second (warm) run, and compares the output byte for byte
+with the same call under ``backend="numpy"`` (the host tier, this system's
+reference: the pipeline is integer end to end, so any differing byte is a
+failure). The default ``backend="auto"`` is the host tier, so the device
+is named. Each phase prints one line with its evidence that the device did
+the work: the device-program counters of the run.
 
 The last line of standard output is one JSON object, printed only when
 every phase passed:
@@ -72,8 +73,8 @@ def gpu_name_and_power_limit() -> str:
 
 def run(opts) -> tuple[bytes, float, dict]:
     """One concat_streaming pass: (bytes, seconds, counter deltas)."""
-    from image_stitch import concat_streaming
-    from image_stitch.utils.observability import COUNTERS
+    from image_stitch_tpu import concat_streaming
+    from image_stitch_tpu.utils.observability import COUNTERS
 
     before = dict(COUNTERS)
     t0 = time.perf_counter()
@@ -84,27 +85,13 @@ def run(opts) -> tuple[bytes, float, dict]:
     return out, dt, delta
 
 
-def phase(name: str, opts: dict, canvas_px: int, expect: dict,
-          mesh: int | None = None) -> None:
+def phase(name: str, opts: dict, expect: dict, mesh: int | None = None) -> None:
     """Compile run, warm run, host-reference run; check bytes and evidence.
 
-    ``expect`` maps a counter to the least count the warm run must show.
-    Canvases of at least AUTO_DEVICE_THRESHOLD_PIXELS run with the default
-    backend ('auto'), which must resolve to the device; smaller ones name
-    the device backend explicitly."""
-    from image_stitch.ops.backend import (
-        AUTO_DEVICE_THRESHOLD_PIXELS,
-        resolve_backend_name,
-    )
-
+    ``expect`` maps a counter to the least count the warm run must show."""
     if mesh is not None:
         chosen = f"mesh={mesh}"
         dev_opts = {**opts, "mesh": mesh}
-    elif canvas_px >= AUTO_DEVICE_THRESHOLD_PIXELS:
-        chosen = resolve_backend_name("auto", canvas_px)
-        check(chosen == "jax", f"{name}: auto resolved to {chosen!r}, not the device")
-        chosen = "auto->jax"
-        dev_opts = dict(opts)  # default backend: 'auto'
     else:
         chosen = "jax"
         dev_opts = {**opts, "backend": "jax"}
@@ -143,7 +130,7 @@ def phase_device(n_devices: int):
     devices = jax.devices()
     check(len(devices) >= n_devices,
           f"device: {len(devices)} devices visible, {n_devices} needed")
-    from image_stitch.native import native_available
+    from image_stitch_tpu.native import native_available
 
     print(gpu_name_and_power_limit(), flush=True)
     print(
@@ -162,10 +149,10 @@ def phase_kernels() -> None:
     import numpy as np
 
     from bench import band_pixels
-    from image_stitch.codecs.jpeg.encoder import _band_to_blocks_numpy
-    from image_stitch.codecs.jpeg.tables import quality_scaled_tables
-    from image_stitch.ops.device import filter_select_trace, jpeg_quantize_trace
-    from image_stitch.ops.png_filter import filter_select_band
+    from image_stitch_tpu.codecs.jpeg.encoder import _band_to_blocks_numpy
+    from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu.ops.device import filter_select_trace, jpeg_quantize_trace
+    from image_stitch_tpu.ops.png_filter import filter_select_band
 
     rgba = band_pixels(BAND, KERNEL_WIDTH)
     lq, cq = quality_scaled_tables(QUALITY)
@@ -188,14 +175,14 @@ def phase_kernels() -> None:
 
     # Phase-1 pack: the Pallas kernel compiled through Triton against the
     # plain XLA form, on the band's real symbol streams (q85 budget).
-    from image_stitch.codecs.jpeg.huffman import build_huffman_codes
-    from image_stitch.codecs.jpeg import tables as T
-    from image_stitch.ops.jpeg_entropy_device import (
+    from image_stitch_tpu.codecs.jpeg.huffman import build_huffman_codes
+    from image_stitch_tpu.codecs.jpeg import tables as T
+    from image_stitch_tpu.ops.jpeg_entropy_device import (
         _pack_blocks_aligned,
         _symbol_streams_flat,
         build_entropy_luts,
     )
-    from image_stitch.ops.pallas_kernels import pack_blocks_aligned_pallas
+    from image_stitch_tpu.ops.pallas_kernels import pack_blocks_aligned_pallas
 
     luts = build_entropy_luts(
         build_huffman_codes(T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS),
@@ -227,25 +214,23 @@ def single_card() -> None:
     jpeg = {"outputFormat": "jpeg", "jpegQuality": QUALITY}
     for ri in (0, 1):
         phase(f"grid_jpeg(restart_rows={ri})",
-              {**grid, **jpeg, "jpeg_restart_interval_rows": ri}, side * side,
+              {**grid, **jpeg, "jpeg_restart_interval_rows": ri},
               {"device_jpeg_programs": 1})
-    phase("png_out", grid, side * side,
-          {"device_png_filter_bands": -(-side // BAND)})
+    phase("png_out", grid, {"device_png_filter_bands": -(-side // BAND)})
 
     jtiles = [make_tile_jpeg(s, TILE) for s in range(JPEG_GRID * JPEG_GRID)]
     side = JPEG_GRID * TILE
     phase("jpeg_tiles",
           {"inputs": jtiles, "layout": {"columns": JPEG_GRID}, "bandHeight": BAND,
            **jpeg},
-          side * side,
           {"device_decode_bands": -(-side // BAND), "device_jpeg_programs": 1})
 
     inputs, side = make_positioned_inputs(POSITIONED_SIDE)
     pos = {"inputs": inputs, "layout": {"width": side, "height": side},
            "bandHeight": BAND}
-    phase("positioned_png", pos, side * side,
+    phase("positioned_png", pos,
           {"device_composite_bands": 1, "device_png_filter_bands": 1})
-    phase("positioned_jpeg", {**pos, **jpeg}, side * side,
+    phase("positioned_jpeg", {**pos, **jpeg},
           {"device_composite_bands": 1, "device_jpeg_programs": 1})
     phase_kernels()
 
@@ -256,10 +241,64 @@ def mesh_path(n: int) -> None:
     side = GRID * TILE
     phase("mesh_grid_jpeg(restart_rows=1)",
           {**grid, "outputFormat": "jpeg", "jpegQuality": QUALITY,
-           "jpeg_restart_interval_rows": 1}, side * side,
+           "jpeg_restart_interval_rows": 1},
           {"device_jpeg_programs": 1}, mesh=n)
-    phase("mesh_png_out", grid, side * side,
+    phase("mesh_png_out", grid,
           {"device_png_filter_bands": -(-side // BAND)}, mesh=n)
+    mesh_pack_sharded(n)
+
+
+def mesh_pack_sharded(n: int) -> None:
+    """The restart-groups band program compiled for the n-device mesh: each
+    device's Triton pack call must cover nb / n blocks, not all nb."""
+    import functools
+    import re
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from bench import band_pixels
+    from image_stitch_tpu.codecs.jpeg import tables as T
+    from image_stitch_tpu.codecs.jpeg.huffman import build_huffman_codes
+    from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu.ops.jpeg_entropy_device import (
+        build_entropy_luts,
+        jpeg_encode_band_groups_trace,
+    )
+    from image_stitch_tpu.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n)
+    lq, cq = quality_scaled_tables(QUALITY)
+    luts = build_entropy_luts(
+        build_huffman_codes(T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS),
+        build_huffman_codes(T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS),
+        build_huffman_codes(T.STD_DC_CHROMA_BITS, T.STD_DC_CHROMA_VALS),
+        build_huffman_codes(T.STD_AC_CHROMA_BITS, T.STD_AC_CHROMA_VALS),
+    )
+    rep = NamedSharding(mesh, P())
+    prog = jax.jit(
+        functools.partial(
+            jpeg_encode_band_groups_trace, n_groups=BAND // 8,
+            cap_words=8 * KERNEL_WIDTH * 3 // 32, local_words=12,  # q85
+            merge="hybrid", mesh=mesh,
+        ),
+        in_shardings=(NamedSharding(mesh, P("band", "x", None)), rep, rep,
+                      {k: rep for k in luts}),
+    )
+    band = jnp.asarray(band_pixels(BAND, KERNEL_WIDTH)[..., :3])
+    hlo = prog.lower(band, jnp.asarray(lq), jnp.asarray(cq), luts).compile().as_text()
+    nb = BAND * KERNEL_WIDTH // 64 * 3
+    words = (12 + 2) * nb
+    calls = [ln for ln in hlo.splitlines() if "custom-call(" in ln and "triton" in ln]
+    shapes = sorted({int(m) for ln in calls
+                     for m in re.findall(r"= u32\[(\d+)\]", ln)})
+    check(shapes == [words // n],
+          f"mesh pack: Triton call output sizes {shapes}, expected "
+          f"[{words // n}] (nb={nb} blocks over {n} devices); "
+          f"calls: {[ln.strip()[:300] for ln in calls][:4]}")
+    print(f"phase mesh_pack_sharded: blocks={nb} per_device={nb // n} "
+          f"triton_out_words={shapes}", flush=True)
 
 
 def main(argv=None) -> int:

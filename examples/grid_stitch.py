@@ -9,7 +9,7 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from image_stitch import concat_to_file
+from image_stitch_tpu import concat_to_file
 
 if len(sys.argv) >= 3:
     out, *inputs = sys.argv[1:]

@@ -22,7 +22,7 @@ if os.environ.get("JAX_PLATFORMS") == "cpu":
 
 import numpy as np
 
-from image_stitch import concat_to_buffer
+from image_stitch_tpu import concat_to_buffer
 
 
 def main() -> None:

@@ -14,7 +14,7 @@ import zlib
 
 import numpy as np
 
-from image_stitch import (
+from image_stitch_tpu import (
     CoreStreamingConcatenator,
     ImageSource,
     PngHeader,

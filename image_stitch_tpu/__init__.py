@@ -1,4 +1,4 @@
-"""image_stitch — an accelerator-backed image compositing and codec framework.
+"""image_stitch_tpu — an accelerator-backed image compositing and codec framework.
 
 A from-scratch JAX/XLA/Pallas redesign with the capabilities and API surface
 of the TypeScript library ``jburnhams/image-stitch`` (reference:

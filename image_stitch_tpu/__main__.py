@@ -5,10 +5,10 @@ convenience wrapper over the same public API (``concat_to_file``), so
 every option maps 1:1 onto ``ConcatOptions``.
 
 Examples:
-    python -m image_stitch a.png b.png c.png d.png --columns 2 -o out.png
-    python -m image_stitch tiles/*.png --columns 8 --format jpeg \\
+    python -m image_stitch_tpu a.png b.png c.png d.png --columns 2 -o out.png
+    python -m image_stitch_tpu tiles/*.png --columns 8 --format jpeg \\
         --quality 90 --threads 4 -o mosaic.jpg
-    python -m image_stitch sprite.png --at 10,20 bg.png --at 0,0 \\
+    python -m image_stitch_tpu sprite.png --at 10,20 bg.png --at 0,0 \\
         --positioned -o composed.png
 """
 
@@ -20,7 +20,7 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="image_stitch",
+        prog="image_stitch_tpu",
         description="Stitch images into a grid or positioned composite "
         "(streaming, O(canvas-width) memory).",
     )

@@ -266,9 +266,9 @@ def _auto_cache_budget() -> float:
     tests enable it for tiled scenarios (memory.test.ts:33-35); here
     repeated small inputs share one producer by default, bounded so big
     tiles never silently trade the streaming memory posture for speed.
-    STITCH_AUTO_CACHE_MB=0 disables."""
+    STITCH_TPU_AUTO_CACHE_MB=0 disables."""
     try:
-        return float(os.environ.get("STITCH_AUTO_CACHE_MB", "64")) * 1e6
+        return float(os.environ.get("STITCH_TPU_AUTO_CACHE_MB", "64")) * 1e6
     except ValueError:
         return 64e6
 

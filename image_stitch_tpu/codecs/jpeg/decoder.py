@@ -6,7 +6,7 @@ and then stream out as scanlines/bands because JPEG can't stream rows
 (BaseJpegDecoder.scanlines, :317-332). Backend tiers mirror the reference's
 sharp(native) → jpeg-js(owned) selection (:241-279): here the fast native
 tier is PIL (libjpeg-turbo) and the owned tier is the from-scratch baseline
-decoder in :mod:`image_stitch.codecs.jpeg.owned_decoder` (host Huffman +
+decoder in :mod:`image_stitch_tpu.codecs.jpeg.owned_decoder` (host Huffman +
 device IDCT).
 """
 

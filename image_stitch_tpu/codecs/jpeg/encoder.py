@@ -143,7 +143,7 @@ class StreamingJpegEncoder:
             self._native_coder = None
         if (
             self._native_coder is None
-            and backend != "jax"
+            and backend not in ("tpu", "jax")
             and width * height > (1 << 21)
         ):
             import warnings
@@ -180,9 +180,9 @@ class StreamingJpegEncoder:
         import collections
 
         self._inflight = collections.deque()
-        self._inflight_depth = max(1, int(os.environ.get("STITCH_INFLIGHT", "2")))
+        self._inflight_depth = max(1, int(os.environ.get("STITCH_TPU_INFLIGHT", "2")))
         self._dev_encoder = None
-        if backend == "jax":
+        if backend in ("tpu", "jax"):
             from ...ops.device import JaxBackend
 
             self._device = JaxBackend(mesh=mesh)
@@ -208,7 +208,7 @@ class StreamingJpegEncoder:
             # batch bands of input stay resident on device, so the knob
             # trades HBM for throughput.
             batch_bands = max(
-                1, int(os.environ.get("STITCH_DEVICE_BATCH", "1"))
+                1, int(os.environ.get("STITCH_TPU_DEVICE_BATCH", "1"))
             )
             self._dev_encoder = DeviceJpegEncoder(
                 self.luma_q, self.chroma_q,

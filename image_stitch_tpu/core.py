@@ -633,11 +633,10 @@ class CoreStreamingConcatenator:
         dev_gate = (
             opts.output_format == "jpeg"
             and dtype == np.uint8
-            and _os.environ.get("STITCH_DEVICE_DECODE", "1") != "0"
+            and _os.environ.get("STITCH_TPU_DEVICE_DECODE", "1") != "0"
             and (
                 self._resolved_mesh() is not None
-                or resolve_backend_name(opts.backend, width * total_h)
-                == "jax"
+                or resolve_backend_name(opts.backend) == "jax"
             )
         )
         placement_y0 = {p[0]: p[1] for p in placements}
@@ -655,7 +654,7 @@ class CoreStreamingConcatenator:
         # Packed device bands: the decode emits (H, W) uint32 byte-packed
         # RGBA (no channel-interleave relayout) and the device encoder's
         # ycbcr_int unpacks arithmetically — byte-identical both ways.
-        dev_packed = _os.environ.get("STITCH_DECODE_PACKED", "0") == "1"
+        dev_packed = _os.environ.get("STITCH_TPU_DECODE_PACKED", "0") == "1"
 
         def dev_rows(image_idx: int, seg_y0: int, seg_y1: int, device: bool):
             dev = dev_cache[image_idx]
@@ -856,9 +855,7 @@ class CoreStreamingConcatenator:
             mesh = self._resolved_mesh()
             from .ops.backend import resolve_backend_name
 
-            if mesh is not None or resolve_backend_name(
-                opts.backend, out_header.width * out_header.height
-            ) == "jax":
+            if mesh is not None or resolve_backend_name(opts.backend) == "jax":
                 from .ops.composite_device import DeviceCompositor
 
                 compositor = DeviceCompositor(mesh=mesh)
@@ -965,9 +962,7 @@ class CoreStreamingConcatenator:
                 self._mesh_backend = JaxBackend(mesh=mesh)
             backend = self._mesh_backend
         else:
-            backend = get_backend(
-                self.options.backend, out_header.width * out_header.height
-            )
+            backend = get_backend(self.options.backend)
         bpp = get_bytes_per_pixel(out_header.bit_depth, out_header.color_type)
         chunks: list[bytes] = []
         deflator = StreamingDeflator(
@@ -1033,9 +1028,7 @@ class CoreStreamingConcatenator:
             quality=self.options.jpeg_quality,
             backend="jax"
             if mesh is not None
-            else resolve_backend_name(
-                self.options.backend, out_header.width * out_header.height
-            ),
+            else resolve_backend_name(self.options.backend),
             sampling=self.options.jpeg_sampling,
             restart_interval_rows=self.options.jpeg_restart_interval_rows,
             mesh=mesh,
@@ -1043,7 +1036,7 @@ class CoreStreamingConcatenator:
         yield from encoder.header()
         for canvas in bands:
             # Rank-2 uint32 bands are the device decode tier's byte-packed
-            # RGBA form (STITCH_DECODE_PACKED); anything else must be
+            # RGBA form (STITCH_TPU_DECODE_PACKED); anything else must be
             # 8-bit interleaved.
             packed = canvas.ndim == 2 and canvas.dtype == np.uint32
             if canvas.dtype != np.uint8 and not packed:

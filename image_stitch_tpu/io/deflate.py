@@ -23,7 +23,7 @@ class StreamingDeflator:
     hash-chain lazy matcher, per-block dynamic Huffman, ~1.8x CPython zlib
     at a slightly better ratio on filtered-PNG data) handles the default
     and filtered strategies at levels 1-9; zlib remains the tier for rle/
-    huffman, level 0, and STITCH_NO_NATIVE fallback. ``content_hint=
+    huffman, level 0, and STITCH_TPU_NO_NATIVE fallback. ``content_hint=
     "filtered_png"`` (the PNG writer sets it) selects the native
     filtered-scanline matcher profile under the default strategy — the
     writer's input is always filter residuals, where the shallow-chain

@@ -107,7 +107,7 @@ def get_native_lib():
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    if os.environ.get("STITCH_NO_NATIVE"):
+    if os.environ.get("STITCH_TPU_NO_NATIVE"):
         return None
     path = _build_library()
     if path is None:

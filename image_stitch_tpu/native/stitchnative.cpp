@@ -1,4 +1,4 @@
-// stitchnative — host-side native kernels for the image_stitch framework.
+// stitchnative — host-side native kernels for the image_stitch_tpu framework.
 //
 // Equivalent of the reference's native/WASM components (SURVEY §2):
 // the Rust→WASM JPEG entropy coder (jpeg-encoder-wasm) and the byte-serial

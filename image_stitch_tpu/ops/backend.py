@@ -3,7 +3,7 @@
 The orchestrator is backend-agnostic: ``numpy`` (the host oracle — float64
 semantics identical to the reference's JS) and ``jax`` (device compute:
 vectorized filter selection and JPEG DCT/quantization on the accelerator
-via XLA; see :mod:`image_stitch.ops.device`).
+via XLA; see :mod:`image_stitch_tpu.ops.device`).
 
 Both backends are bit-exact for everything the reference's grid mode does
 (pure integer math); see ops/device.py for the alpha-blend exactness notes.
@@ -53,35 +53,21 @@ class NumpyBackend:
 
 _BACKENDS: dict[str, object] = {}
 
-# 'auto' sends canvases of at least this many pixels to the device when JAX's
-# default backend is a GPU; smaller canvases stay on the host tier. The
-# value is the smallest canvas on which the device path won end to end on
-# an H100 (a 6 x 6 grid of 512-px PNG tiles to PNG; see PERF.md).
-AUTO_DEVICE_THRESHOLD_PIXELS = 9_437_184
+# Option names -> concrete backends. 'auto' is the host tier: on an H100 the
+# device path won end to end at no canvas size measured (0.26-67 MP, PNG and
+# JPEG output; PERF.md), so the device runs only when named ('jax', or its
+# alias 'tpu') or through a mesh.
+_ALIASES = {"oracle": "numpy", "auto": "numpy", "tpu": "jax"}
 
 
-def resolve_backend_name(name: str, canvas_pixels: int | None = None) -> str:
-    """Map an option string to a concrete backend: 'numpy' or 'jax'.
-
-    'auto' picks 'jax' when JAX's default backend is 'gpu' and the canvas
-    has at least AUTO_DEVICE_THRESHOLD_PIXELS pixels, else 'numpy'. An
-    error while asking JAX for its backend propagates: it never quietly
-    selects the host.
-    """
-    key = {"oracle": "numpy"}.get(name, name)
-    if key != "auto":
-        return key
-    if canvas_pixels is None or canvas_pixels < AUTO_DEVICE_THRESHOLD_PIXELS:
-        return "numpy"
-    import jax
-
-    return "jax" if jax.default_backend() == "gpu" else "numpy"
+def resolve_backend_name(name: str) -> str:
+    """Map an option string to a concrete backend: 'numpy' or 'jax'."""
+    return _ALIASES.get(name, name)
 
 
-def get_backend(name: str, canvas_pixels: int | None = None):
-    """'oracle'/'numpy' -> NumpyBackend; 'jax' -> JaxBackend; 'auto' -> sized
-    choice."""
-    key = resolve_backend_name(name, canvas_pixels)
+def get_backend(name: str):
+    """'oracle'/'numpy'/'auto' -> NumpyBackend; 'jax'/'tpu' -> JaxBackend."""
+    key = resolve_backend_name(name)
     if key not in _BACKENDS:
         if key == "numpy":
             _BACKENDS[key] = NumpyBackend()

@@ -13,7 +13,7 @@ transpose/reshape (free for XLA), and both encoders consume the canvas from
 device memory without a round trip through host memory.
 
 These functions are pure traces — jit/shard them from
-:mod:`image_stitch.parallel.mesh`.
+:mod:`image_stitch_tpu.parallel.mesh`.
 """
 
 from __future__ import annotations

@@ -651,13 +651,33 @@ def _pack_blocks_aligned(codes, lens, starts, local_words: int,
 
 
 def _pack_dispatch(codes, lens, starts, local_words: int,
-                   transpose: bool = True):
-    """Phase-1 packing through the Pallas kernel
-    (ops/pallas_kernels.pack_blocks_aligned_pallas), bit-identical to
-    _pack_blocks_aligned, which stays as its plain reference."""
-    from .pallas_kernels import pack_blocks_aligned_pallas
+                   transpose: bool = True, mesh=None):
+    """Phase-1 packing: the Pallas kernel
+    (ops/pallas_kernels.pack_blocks_aligned_pallas, Triton) on a GPU, the
+    XLA form _pack_blocks_aligned elsewhere; the two are bit-identical.
 
-    local = pack_blocks_aligned_pallas(codes, lens, starts, local_words)
+    Blocks pack independently, so with a ``mesh`` each device packs its
+    own contiguous share of the blocks under ``shard_map`` (a Triton call
+    is opaque to the SPMD partitioner, which would otherwise run it whole
+    on every device)."""
+    if jax.default_backend() == "gpu":
+        from .pallas_kernels import pack_blocks_aligned_pallas
+
+        def pack(c, n, s):
+            return pack_blocks_aligned_pallas(c, n, s, local_words)
+    else:
+        def pack(c, n, s):
+            return _pack_blocks_aligned(c, n, s, local_words, transpose=False)
+
+    if mesh is not None and codes.shape[0] % mesh.size == 0:
+        from jax.sharding import PartitionSpec as P
+
+        blocks = P(tuple(mesh.axis_names))
+        pack = jax.shard_map(
+            pack, mesh=mesh, in_specs=(blocks, blocks, blocks),
+            out_specs=P(None, tuple(mesh.axis_names)), check_vma=False,
+        )
+    local = pack(codes, lens, starts)
     return local.T if transpose else local
 
 
@@ -840,6 +860,7 @@ def jpeg_encode_band_groups_trace(
     local_words: int = LOCAL_WORDS,
     merge: str = "gather",
     k_overlap: int = K_OVERLAP,
+    mesh=None,
 ):
     """Fused band program for restart-interval mode: quantize once, then
     pack every restart group in one FLAT program (prev_dc = 0 and
@@ -871,7 +892,7 @@ def jpeg_encode_band_groups_trace(
         jpeg_pack_groups_from_blocks_trace(
             yb, cbb, crb, luts, n_groups, cap_words,
             sampling=sampling, local_words=local_words, merge=merge,
-            k_overlap=k_overlap,
+            k_overlap=k_overlap, mesh=mesh,
         )
     )
     return dense, group_bits, max_block_bits, max_overlap, yb, cbb, crb
@@ -886,6 +907,7 @@ def jpeg_pack_groups_from_blocks_trace(
     local_words: int = LOCAL_WORDS,
     merge: str = "gather",
     k_overlap: int = K_OVERLAP,
+    mesh=None,
 ):
     """Entropy-pack already-quantized blocks as restart groups.
 
@@ -898,7 +920,8 @@ def jpeg_pack_groups_from_blocks_trace(
     (merge="segsum" / exact capacity / bigger budget) instead of
     host-coding — the blocks never leave the device, and the bytes are
     identical by construction (the merge strategies are bit-equivalent;
-    capacity only sizes the output buffer).
+    capacity only sizes the output buffer). ``mesh``: the mesh the
+    program is sharded over, if any (see _pack_dispatch).
     """
     codes, lens = _symbol_streams_flat(yb, cbb, crb, luts, n_groups, sampling)
 
@@ -919,25 +942,33 @@ def jpeg_pack_groups_from_blocks_trace(
     total = n_groups * cap_words
     if merge == "hybrid":
         local = _pack_dispatch(
-            codes, lens, starts, local_words, transpose=False
+            codes, lens, starts, local_words, transpose=False, mesh=mesh
         )
         dense = _merge_aligned_hybrid(local, starts, block_bits, total)
         # Exact for any per-word overlap; 0 keeps the host check inert.
         max_overlap = jnp.int32(0)
     elif merge == "segsum":
         local = _pack_dispatch(
-            codes, lens, starts, local_words, transpose=False
+            codes, lens, starts, local_words, transpose=False, mesh=mesh
         )
         dense = _merge_aligned_segsum(local, starts, total)
         # No per-word overlap bound exists in the scatter-add merge; emit
         # a constant 0 so the host-side K_OVERLAP check is inert.
         max_overlap = jnp.int32(0)
     else:
-        aligned = _pack_dispatch(codes, lens, starts, local_words)
+        aligned = _pack_dispatch(codes, lens, starts, local_words, mesh=mesh)
         dense, max_overlap = _merge_aligned(
             aligned, starts, block_bits, total, k_overlap=k_overlap
         )
     return dense, group_bits, max_block_bits, max_overlap
+
+
+@functools.lru_cache(maxsize=None)
+def _groups_trace_on(mesh):
+    """jpeg_encode_band_groups_trace bound to ``mesh``: one function object
+    per mesh, so every encoder on it shares jit's trace cache (a fresh
+    partial per encoder would re-trace each run)."""
+    return functools.partial(jpeg_encode_band_groups_trace, mesh=mesh)
 
 
 class DeviceJpegEncoder:
@@ -1022,8 +1053,9 @@ class DeviceJpegEncoder:
             band3d = NamedSharding(mesh, P("band", "x", None))
             rep = NamedSharding(mesh, P())
             lut_shardings = {k: rep for k in self._luts}
+            sharded_trace = _groups_trace_on(mesh)
             self._jit_groups = jax.jit(
-                jpeg_encode_band_groups_trace,
+                sharded_trace,
                 static_argnames=(
                     "n_groups", "cap_words", "sampling", "local_words",
                     "merge",
@@ -1033,7 +1065,7 @@ class DeviceJpegEncoder:
             # Packed uint32 bands are rank-2: same row/column sharding,
             # no channel axis.
             self._jit_groups_packed = jax.jit(
-                jpeg_encode_band_groups_trace,
+                sharded_trace,
                 static_argnames=(
                     "n_groups", "cap_words", "sampling", "local_words",
                     "merge",

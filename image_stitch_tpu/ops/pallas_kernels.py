@@ -8,8 +8,9 @@ program owns a block of PACK_LANES JPEG blocks and keeps that block's
 (AW, lanes) accumulator in registers for the whole symbol chain, so device
 memory sees the symbol stream once and the packed words once.
 
-On the GPU the kernel compiles through Triton; on any other backend (the
-CPU test suite) the same kernel runs in Pallas interpret mode.
+The kernel compiles through Triton, so it runs on NVIDIA GPUs only;
+``interpret=True`` runs it in the Pallas interpreter on any backend (the
+CPU test suite). ``_pack_dispatch`` picks this kernel or the XLA form.
 """
 
 from __future__ import annotations
@@ -78,14 +79,11 @@ def _pack_kernel(codes_ref, lens_ref, off_ref, out_ref, *, nb: int,
 
 @functools.partial(jax.jit, static_argnames=("local_words", "interpret"))
 def pack_blocks_aligned_pallas(codes, lens, starts, local_words: int,
-                               interpret: bool | None = None):
+                               interpret: bool = False):
     """(nb, n_sym) symbol streams -> (local_words + 2, nb) uint32 words
     pre-aligned to each block's global start bit; bit-identical to
     ``_pack_blocks_aligned(codes, lens, starts, local_words,
-    transpose=False)``. ``interpret=None`` compiles on the GPU and
-    interprets elsewhere."""
-    if interpret is None:
-        interpret = jax.default_backend() != "gpu"
+    transpose=False)``."""
     nb, n_sym = codes.shape
     n_aw = local_words + 2
     aw_pad = pl.next_power_of_2(n_aw)

@@ -4,7 +4,7 @@ Counterpart of the reference's ``src/png-filter.ts``. The reference works one
 scanline at a time with per-byte JS loops (png-filter.ts:34-183); here the
 unit of work is a *band* of rows so the encode side vectorizes completely
 (all five filter candidates for every row of a band at once — the device
-version lives in :mod:`image_stitch.ops.device`). The decode side has a
+version lives in :mod:`image_stitch_tpu.ops.device`). The decode side has a
 true sequential data dependence (left/up/up-left), so defiltering is a
 host-side scan: ``Sub`` falls to a per-lane cumulative sum, ``Up``/``None``
 vectorize, and ``Average``/``Paeth`` run a per-pixel recurrence.
@@ -172,7 +172,7 @@ def defilter_band(
     in_place: bool = False,
 ) -> np.ndarray:
     """Defilter a band through the fastest available tier: native C++
-    (image_stitch/native) when built, else the numpy path.
+    (image_stitch_tpu/native) when built, else the numpy path.
 
     ``in_place=True`` may mutate ``rows`` (caller-owned buffers only)."""
     from ..native import defilter_band_native

@@ -11,7 +11,7 @@ manual mitigation was a periodic jax.clear_caches()).
 This module makes that mitigation automatic and production-default: every
 device program dispatch registers its signature (program name + input
 shape + static parameters); once the number of DISTINCT signatures since
-the last flush exceeds ``STITCH_PROGRAM_CACHE_LIMIT`` (default 128,
+the last flush exceeds ``STITCH_TPU_PROGRAM_CACHE_LIMIT`` (default 128,
 0 disables), ``jax.clear_caches()`` drops the jit executables and the
 counter resets. Recompiles after a flush are cheap: the persistent
 on-disk compilation cache (ops/device.py) still holds every lowered
@@ -33,7 +33,7 @@ _lock = threading.Lock()
 
 
 def _limit() -> int:
-    return int(os.environ.get("STITCH_PROGRAM_CACHE_LIMIT", "128"))
+    return int(os.environ.get("STITCH_TPU_PROGRAM_CACHE_LIMIT", "128"))
 
 
 def note_program(*signature) -> None:

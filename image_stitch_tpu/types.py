@@ -173,8 +173,8 @@ class ConcatOptions:
     # zlib strategy for PNG output: 'default' | 'filtered' | 'rle'
     # ('filtered'/'rle' can be much faster on filtered scanline data).
     png_compression_strategy: str = "default"
-    # 'auto' (device compute for large canvases, host numpy below the
-    # measured AUTO_DEVICE_THRESHOLD_PIXELS), 'jax' (force device), or
+    # 'auto' (the host tier: the device path won end to end at no canvas
+    # size measured on an H100), 'jax'/'tpu' (device compute), or
     # 'numpy'/'oracle' (host float64 path matching the reference's JS
     # semantics bit-for-bit).
     backend: str = "auto"
@@ -187,7 +187,7 @@ class ConcatOptions:
     # (the native inflate/defilter calls release the GIL, so separate tiles
     # decode on separate cores). 1 = serial (reference parity; the reference
     # is single-threaded Node, src/image-concat-core.ts). 0 = auto
-    # (STITCH_HOST_THREADS env, else serial). Output bytes are identical
+    # (STITCH_TPU_HOST_THREADS env, else serial). Output bytes are identical
     # at any setting: assembly order is deterministic.
     host_threads: int = 0
 
@@ -260,12 +260,12 @@ class ConcatOptions:
 
     def resolved_host_threads(self) -> int:
         """Effective worker count: explicit option, else the
-        STITCH_HOST_THREADS env var, else 1 (serial)."""
+        STITCH_TPU_HOST_THREADS env var, else 1 (serial)."""
         n = int(self.host_threads)
         if n == 0:
             import os
 
-            n = int(os.environ.get("STITCH_HOST_THREADS", "1") or 1)
+            n = int(os.environ.get("STITCH_TPU_HOST_THREADS", "1") or 1)
         return max(1, n)
 
 

@@ -36,8 +36,8 @@ def count(name: str, n: int = 1) -> None:
 @contextlib.contextmanager
 def device_trace(log_dir: str | None = None):
     """Profile a region with jax.profiler; no-op when log_dir is None and
-    STITCH_TRACE_DIR is unset."""
-    log_dir = log_dir or os.environ.get("STITCH_TRACE_DIR")
+    STITCH_TPU_TRACE_DIR is unset."""
+    log_dir = log_dir or os.environ.get("STITCH_TPU_TRACE_DIR")
     if not log_dir:
         yield
         return

@@ -27,7 +27,7 @@ def make_noise(size_mb: float) -> bytes:
 
 
 def time_owned(raw: bytes, reps: int, level: int) -> tuple[float, int]:
-    from image_stitch.native import NativeDeflator
+    from image_stitch_tpu.native import NativeDeflator
 
     best, out_len = float("inf"), 0
     for _ in range(reps):

@@ -35,7 +35,7 @@ def make_payload(kind: str, size_mb: float) -> bytes:
         arr[:, :, 1] = np.arange(n_rows, dtype=np.uint32)[:, None] % 256
         arr[:, :, 2] = rng.integers(0, 64, (n_rows, size), dtype=np.uint8) + 96
         arr[:, :, 3] = 255
-        from image_stitch.ops.png_filter import filter_select_band
+        from image_stitch_tpu.ops.png_filter import filter_select_band
 
         raw = arr.reshape(n_rows, size * 4)
         types, filtered = filter_select_band(raw, None, 4)
@@ -55,7 +55,7 @@ def make_payload(kind: str, size_mb: float) -> bytes:
 
 
 def time_owned(comp: bytes, out_len: int, reps: int) -> float:
-    from image_stitch.native import NativeInflater
+    from image_stitch_tpu.native import NativeInflater
 
     best = float("inf")
     for _ in range(reps):
@@ -78,7 +78,7 @@ def time_owned(comp: bytes, out_len: int, reps: int) -> float:
 def time_owned_banded(comp: bytes, out_len: int, reps: int, band: int) -> float:
     """Decode in band-sized output chunks, feeding input incrementally —
     the streaming decoder's actual call pattern."""
-    from image_stitch.native import NativeInflater
+    from image_stitch_tpu.native import NativeInflater
 
     best = float("inf")
     chunks = [comp[i:i + 65536] for i in range(0, len(comp), 65536)]

@@ -58,7 +58,7 @@ def _decode_rgba(data: bytes) -> np.ndarray | None:
 
 
 def case_pngsuite_grid(rng, files) -> str | None:
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
 
     n = int(rng.integers(1, 7))
     picks = [files[int(rng.integers(0, len(files)))] for _ in range(n)]
@@ -86,7 +86,7 @@ def case_pngsuite_grid(rng, files) -> str | None:
         return None
     tiles = [d for d, _ in pairs]
     exp = [r for _, r in pairs]
-    import image_stitch.codecs.png.group_decode as gd
+    import image_stitch_tpu.codecs.png.group_decode as gd
 
     cols = len(tiles)
     opts = {"inputs": tiles, "layout": {"columns": cols}}
@@ -115,7 +115,7 @@ def case_pngsuite_grid(rng, files) -> str | None:
 
 
 def case_random_grid(rng) -> str | None:
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
 
     cols = int(rng.integers(1, 5))
     rows = int(rng.integers(1, 4))
@@ -146,8 +146,8 @@ def case_random_grid(rng) -> str | None:
 
 
 def case_crc_posture(rng) -> str | None:
-    from image_stitch import concat_to_buffer
-    from image_stitch.errors import StitchError
+    from image_stitch_tpu import concat_to_buffer
+    from image_stitch_tpu.errors import StitchError
 
     arr = rng.integers(0, 256, (24, 24, 4), dtype=np.uint8)
     buf = io.BytesIO()

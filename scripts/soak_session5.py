@@ -32,7 +32,7 @@ from PIL import Image  # noqa: E402
 
 
 def case_owned_vs_pil(rng) -> str | None:
-    import image_stitch.codecs.jpeg.owned_decoder as od
+    import image_stitch_tpu.codecs.jpeg.owned_decoder as od
 
     h = int(rng.integers(1, 180))
     w = int(rng.integers(1, 180))
@@ -69,8 +69,8 @@ def case_owned_vs_pil(rng) -> str | None:
 
 
 def case_truncation_parity(rng) -> str | None:
-    import image_stitch.codecs.jpeg.owned_decoder as od
-    import image_stitch.native as nat
+    import image_stitch_tpu.codecs.jpeg.owned_decoder as od
+    import image_stitch_tpu.native as nat
 
     h = int(rng.integers(8, 96))
     w = int(rng.integers(8, 96))
@@ -86,9 +86,9 @@ def case_truncation_parity(rng) -> str | None:
 
     def run(no_native: bool):
         if no_native:
-            os.environ["STITCH_NO_NATIVE"] = "1"
+            os.environ["STITCH_TPU_NO_NATIVE"] = "1"
         else:
-            os.environ.pop("STITCH_NO_NATIVE", None)
+            os.environ.pop("STITCH_TPU_NO_NATIVE", None)
         nat._LIB_TRIED = False
         nat._LIB = None
         try:
@@ -98,7 +98,7 @@ def case_truncation_parity(rng) -> str | None:
 
     a = run(False)
     b = run(True)
-    os.environ.pop("STITCH_NO_NATIVE", None)
+    os.environ.pop("STITCH_TPU_NO_NATIVE", None)
     nat._LIB_TRIED = False
     nat._LIB = None
     if a[0] != b[0]:
@@ -109,8 +109,8 @@ def case_truncation_parity(rng) -> str | None:
 
 
 def case_mixed_grid(rng) -> str | None:
-    from image_stitch import concat_to_buffer
-    from image_stitch.codecs.jpeg.decoder import decode_jpeg_to_rgba
+    from image_stitch_tpu import concat_to_buffer
+    from image_stitch_tpu.codecs.jpeg.decoder import decode_jpeg_to_rgba
 
     cols = int(rng.integers(1, 4))
     rows = int(rng.integers(1, 4))
@@ -143,7 +143,7 @@ def case_mixed_grid(rng) -> str | None:
 
 
 def case_device_entropy_cpu(rng) -> str | None:
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
 
     tw = int(rng.integers(16, 72))
     th = int(rng.integers(16, 72))

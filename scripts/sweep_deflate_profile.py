@@ -31,7 +31,7 @@ from bench_inflate import make_payload  # noqa: E402
 
 SRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "image_stitch", "native", "stitchnative.cpp",
+    "image_stitch_tpu", "native", "stitchnative.cpp",
 )
 
 DEFAULT_VARIANTS = (

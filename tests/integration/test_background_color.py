@@ -5,7 +5,7 @@ alpha handling :182-196)."""
 import numpy as np
 import pytest
 
-from image_stitch import StitchError, concat_to_buffer
+from image_stitch_tpu import StitchError, concat_to_buffer
 from tests.utils.fixtures import decode_jpeg_pil, decode_png_pil, png_from_array, random_rgba
 
 
@@ -85,7 +85,7 @@ def test_16bit_background_scaling():
             "backgroundColor": "#112233",
         }
     )
-    from image_stitch import PngDecoder, convert_band
+    from image_stitch_tpu import PngDecoder, convert_band
 
     dec = PngDecoder(out)
     got = np.vstack([convert_band(b, 8, 16, 6, 16) for b in dec.bands()])
@@ -95,7 +95,7 @@ def test_16bit_background_scaling():
 
 
 def test_positioned_background():
-    from image_stitch import PositionedImage
+    from image_stitch_tpu import PositionedImage
 
     spr = random_rgba(4, 4, 7)
     out = concat_to_buffer(

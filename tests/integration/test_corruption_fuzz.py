@@ -9,9 +9,9 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch import concat_to_buffer
-from image_stitch.errors import StitchError
-from image_stitch.types import DecoderOptions
+from image_stitch_tpu import concat_to_buffer
+from image_stitch_tpu.errors import StitchError
+from image_stitch_tpu.types import DecoderOptions
 
 from tests.utils.fixtures import png_from_array
 
@@ -68,7 +68,7 @@ def test_corrupt_png_never_crashes(seed):
 def test_corrupt_png_strict_mode_never_crashes(seed):
     rng = np.random.default_rng(2000 + seed)
     data = mutate(valid_png(), rng)
-    from image_stitch.codecs.png.decoder import PngDecoder
+    from image_stitch_tpu.codecs.png.decoder import PngDecoder
 
     try:
         dec = PngDecoder(data, verify_crc=True)
@@ -115,7 +115,7 @@ def _jpeg_with_segment(seg: bytes) -> bytes:
 def test_truncated_dht_raises_stitcherror():
     """Fuzz-found: a DHT whose declared length cuts off the 16-byte bits
     array raised IndexError in _HuffDecoder (owned_decoder.py)."""
-    from image_stitch.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
 
     # DHT with seg_len=6 -> body is 4 bytes: class/id byte + 3 bits bytes.
     seg = b"\xff\xc4\x00\x06" + b"\x00\x01\x02\x03"
@@ -126,7 +126,7 @@ def test_truncated_dht_raises_stitcherror():
 def test_truncated_sos_raises_stitcherror():
     """Fuzz-found: an SOS claiming 3 components with a 2-byte body raised
     IndexError at the component-spec parse."""
-    from image_stitch.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
 
     sof = b"\xff\xc0\x00\x0b\x08\x00\x08\x00\x08\x01\x01\x11\x00"
     sos = b"\xff\xda\x00\x04\x03\x01"  # ns=3 but only one spec byte follows
@@ -136,7 +136,7 @@ def test_truncated_sos_raises_stitcherror():
 
 def test_truncated_dht_symbol_table_raises_stitcherror():
     """bits declare 255 symbols but the body ends after the bits array."""
-    from image_stitch.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
 
     bits = bytes([0xFF] + [0] * 15)
     seg = b"\xff\xc4\x00\x13" + b"\x00" + bits

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from image_stitch import concat_to_buffer
+from image_stitch_tpu import concat_to_buffer
 
 
 def _jpeg_tile(seed: int, w: int, h: int, sampling: str = "420") -> bytes:
@@ -51,7 +51,7 @@ def _run(inputs, backend: str, **kw) -> bytes:
 
 
 def _count_device_decodes(monkeypatch):
-    from image_stitch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    from image_stitch_tpu.codecs.jpeg.device_decoder import DeviceJpegDecoder
 
     calls = []
     orig = DeviceJpegDecoder.decode_band
@@ -106,7 +106,7 @@ def test_duplicate_inputs_share_device_decoder():
 
 def test_device_decode_off_switch(monkeypatch):
     calls = _count_device_decodes(monkeypatch)
-    monkeypatch.setenv("STITCH_DEVICE_DECODE", "0")
+    monkeypatch.setenv("STITCH_TPU_DEVICE_DECODE", "0")
     tiles = [_jpeg_tile(s, 64, 64) for s in range(2)]
     host = _run(tiles, "numpy")
     dev = _run(tiles, "jax")
@@ -135,13 +135,13 @@ def test_grid_with_background_holes_falls_back():
 
 
 def test_packed_band_bytes_identical(monkeypatch):
-    """STITCH_DECODE_PACKED=1: decode emits (H, W) uint32 byte-packed
+    """STITCH_TPU_DECODE_PACKED=1: decode emits (H, W) uint32 byte-packed
     RGBA, the encoder's ycbcr_int unpacks arithmetically — output bytes
     must equal both the unpacked device route and the host backend."""
     tiles = [_jpeg_tile(s, 64, 64) for s in range(4)]
     host = _run(tiles, "numpy")
     dev_unpacked = _run(tiles, "jax")
-    monkeypatch.setenv("STITCH_DECODE_PACKED", "1")
+    monkeypatch.setenv("STITCH_TPU_DECODE_PACKED", "1")
     calls = _count_device_decodes(monkeypatch)
     dev_packed = _run(tiles, "jax")
     assert dev_packed == host == dev_unpacked
@@ -149,7 +149,7 @@ def test_packed_band_bytes_identical(monkeypatch):
 
 
 def test_packed_band_restart_groups(monkeypatch):
-    monkeypatch.setenv("STITCH_DECODE_PACKED", "1")
+    monkeypatch.setenv("STITCH_TPU_DECODE_PACKED", "1")
     tiles = [_jpeg_tile(s, 64, 64) for s in range(4)]
     host = _run(tiles, "numpy", jpeg_restart_interval_rows=1)
     dev = _run(tiles, "jax", jpeg_restart_interval_rows=1)
@@ -160,7 +160,7 @@ def test_packed_band_mixed_plan_stream(monkeypatch):
     """Odd tile heights: some bands are device-planned (packed), others
     host-planned (interleaved) — the encoder must unify ranks across its
     pending concat without changing a byte."""
-    monkeypatch.setenv("STITCH_DECODE_PACKED", "1")
+    monkeypatch.setenv("STITCH_TPU_DECODE_PACKED", "1")
     tiles = [_jpeg_tile(s, 48, 56) for s in range(4)]
     host = _run(tiles, "numpy", band_height=16)
     dev = _run(tiles, "jax", band_height=16)

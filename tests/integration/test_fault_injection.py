@@ -7,7 +7,7 @@ import zlib
 import numpy as np
 import pytest
 
-from image_stitch import (
+from image_stitch_tpu import (
     PngDecoder,
     PngHeader,
     StitchError,
@@ -53,7 +53,7 @@ def test_scanlines_consumed_once():
 
 def test_truncated_jpeg_header():
     with pytest.raises(StitchError, match="SOF|SOI|Truncated"):
-        from image_stitch import parse_jpeg_header
+        from image_stitch_tpu import parse_jpeg_header
 
         parse_jpeg_header(b"\xff\xd8\xff\xe0\x00\x10JFIF")
 
@@ -75,7 +75,7 @@ def test_decoders_closed_after_stream_error():
 
     class Failing:
         def get_header(self):
-            from image_stitch import ImageHeader
+            from image_stitch_tpu import ImageHeader
 
             return ImageHeader(width=4, height=4, channels=4, bit_depth=8, format="png")
 

@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from image_stitch import PngDecoder, concat_to_buffer, convert_band, parse_png_header
+from image_stitch_tpu import PngDecoder, concat_to_buffer, convert_band, parse_png_header
 from tests.conftest import PNGSUITE_DIR
 
 # One representative per (color type, depth) class.

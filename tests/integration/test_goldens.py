@@ -9,7 +9,7 @@ import pytest
 
 from tests.utils.generate_goldens import GOLDEN_DIR, cases
 
-from image_stitch import concat_to_buffer
+from image_stitch_tpu import concat_to_buffer
 
 
 @pytest.mark.parametrize("name_opts", list(cases()), ids=lambda c: c[0])
@@ -18,7 +18,7 @@ def test_golden_outputs_stable(name_opts):
     path = os.path.join(GOLDEN_DIR, name)
     if not os.path.exists(path):
         pytest.skip(f"golden {name} not generated")
-    from image_stitch.native import native_available
+    from image_stitch_tpu.native import native_available
 
     if not native_available():
         # Goldens pin the native tier's (valid) byte streams: the owned

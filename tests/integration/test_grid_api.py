@@ -7,7 +7,7 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch import (
+from image_stitch_tpu import (
     PositionedImage,
     StitchError,
     concat,
@@ -110,13 +110,13 @@ def test_16bit_input_upgrades_output():
             "layout": {"columns": 2},
         }
     )
-    from image_stitch import parse_png_header
+    from image_stitch_tpu import parse_png_header
 
     header = parse_png_header(out)
     assert header.bit_depth == 16
     assert header.color_type == 6
     # PIL 16-bit RGBA decode is unreliable; verify via our own decoder.
-    from image_stitch import PngDecoder, convert_band
+    from image_stitch_tpu import PngDecoder, convert_band
 
     dec = PngDecoder(out)
     h = dec.png_header
@@ -164,7 +164,7 @@ def test_dimension_mismatch_diagnostics():
     # image-concat-core.ts:429-447).
     import zlib
 
-    from image_stitch import PngHeader, build_png
+    from image_stitch_tpu import PngHeader, build_png
 
     raw = b"".join(b"\x00" + bytes(4 * 4) for _ in range(5))
     bad = build_png(PngHeader(width=4, height=10, bit_depth=8, color_type=6),
@@ -247,7 +247,7 @@ def test_band_height_invariance():
     different push calls), so compare the decompressed stream."""
     import zlib
 
-    from image_stitch import iter_chunks
+    from image_stitch_tpu import iter_chunks
 
     tiles = [png_from_array(random_rgba(50, 37, s)) for s in range(3)]
     streams = []
@@ -329,7 +329,7 @@ def test_raw_array_positioned_and_16bit():
 
     from PIL import Image
 
-    from image_stitch import PositionedImage, parse_png_header
+    from image_stitch_tpu import PositionedImage, parse_png_header
 
     bg = np.full((40, 40, 4), (10, 10, 10, 255), np.uint8)
     sprite = np.zeros((10, 10, 4), np.uint8)

@@ -14,8 +14,8 @@ import zlib
 import numpy as np
 import pytest
 
-from image_stitch import concat_to_buffer
-from image_stitch.codecs.heic import heic_backend_available
+from image_stitch_tpu import concat_to_buffer
+from image_stitch_tpu.codecs.heic import heic_backend_available
 
 
 def box(btype: bytes, body: bytes) -> bytes:
@@ -50,7 +50,7 @@ def heic_tile_pixels(w: int, h: int, seed: int) -> np.ndarray:
 
 
 def make_png(arr: np.ndarray) -> bytes:
-    from image_stitch import PngHeader, build_png
+    from image_stitch_tpu import PngHeader, build_png
 
     h, w = arr.shape[:2]
     payload = np.zeros((h, 1 + w * 4), dtype=np.uint8)
@@ -125,7 +125,7 @@ def test_heic_header_without_decode_in_pass_one():
 
 def test_heic_positioned_mode_with_alpha():
     """HEIC sprite with alpha over a PNG background (positioned mode)."""
-    from image_stitch import PositionedImage
+    from image_stitch_tpu import PositionedImage
 
     bg = np.zeros((64, 64, 4), np.uint8)
     bg[..., 0] = 200

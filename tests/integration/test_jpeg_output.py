@@ -6,7 +6,7 @@ output guard :250)."""
 import numpy as np
 import pytest
 
-from image_stitch import PositionedImage, concat_to_buffer, encode_jpeg
+from image_stitch_tpu import PositionedImage, concat_to_buffer, encode_jpeg
 from tests.utils.fixtures import decode_jpeg_pil, png_from_array, random_rgba
 
 
@@ -163,7 +163,7 @@ def test_encode_jpeg_low_level():
 
 
 def test_invalid_quality_rejected():
-    from image_stitch import StitchError
+    from image_stitch_tpu import StitchError
 
     with pytest.raises(StitchError, match="quality"):
         concat_to_buffer(
@@ -227,14 +227,14 @@ def test_420_python_fallback_matches_native():
     opts = {"inputs": [png_from_array(tile)], "layout": {"columns": 1},
             "outputFormat": "jpeg", "jpegSampling": "420", "backend": "numpy"}
     a = concat_to_buffer(opts)
-    import image_stitch.native as nat
+    import image_stitch_tpu.native as nat
 
     saved = (nat._LIB, nat._LIB_TRIED)
-    os.environ["STITCH_NO_NATIVE"] = "1"
+    os.environ["STITCH_TPU_NO_NATIVE"] = "1"
     nat._LIB, nat._LIB_TRIED = None, False
     try:
         b = concat_to_buffer(opts)
     finally:
-        del os.environ["STITCH_NO_NATIVE"]
+        del os.environ["STITCH_TPU_NO_NATIVE"]
         nat._LIB, nat._LIB_TRIED = saved
     assert a == b

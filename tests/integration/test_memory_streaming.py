@@ -9,7 +9,7 @@ import zlib
 import numpy as np
 import pytest
 
-from image_stitch import (
+from image_stitch_tpu import (
     ImageSource,
     PngHeader,
     build_png,
@@ -17,7 +17,7 @@ from image_stitch import (
     disable_input_cache,
     enable_input_cache,
 )
-from image_stitch.ops.png_filter import filter_select_band
+from image_stitch_tpu.ops.png_filter import filter_select_band
 from tests.utils.memory_monitor import (
     assert_memory_below,
     assert_streaming_efficiency,
@@ -105,7 +105,7 @@ def test_lazy_sources_avoid_materializing_inputs(tmp_path):
 def test_input_cache_decodes_shared_buffer_once(tmp_path):
     """Same bytes object tiled 16x: the cache decodes it once
     (reference: png-input-adapter.ts:34-148, memory.test.ts:33-35)."""
-    from image_stitch.codecs import input_cache
+    from image_stitch_tpu.codecs import input_cache
 
     tile = tile_png(64, 3)
     enable_input_cache()
@@ -209,7 +209,7 @@ def test_10000px_png_memory_budget(tmp_path):
 
 
 @pytest.mark.skipif(
-    bool(os.environ.get("STITCH_NO_NATIVE")),
+    bool(os.environ.get("STITCH_TPU_NO_NATIVE")),
     reason="pure-Python oracle entropy coder is ~50-100x slower; 100 MP "
     "takes >30 min in the fallback tier (memory contract is proven by the "
     "PNG test above, which does run no-native)",
@@ -238,11 +238,11 @@ def test_10000px_jpeg_memory_and_efficiency(tmp_path):
 
 
 @pytest.mark.skipif(
-    bool(os.environ.get("STITCH_SKIP_BIG_MEMORY_TESTS")),
-    reason="STITCH_SKIP_BIG_MEMORY_TESTS=1 skips the 20000^2 proof",
+    bool(os.environ.get("STITCH_TPU_SKIP_BIG_MEMORY_TESTS")),
+    reason="STITCH_TPU_SKIP_BIG_MEMORY_TESTS=1 skips the 20000^2 proof",
 )
 @pytest.mark.skipif(
-    bool(os.environ.get("STITCH_NO_NATIVE")),
+    bool(os.environ.get("STITCH_TPU_NO_NATIVE")),
     reason="the pure-Python fallback tier takes >10 min at this scale; the "
     "memory contract is proven no-native by the 10000^2 PNG test above",
 )
@@ -251,7 +251,7 @@ def test_20000px_tiled_memory_budget(tmp_path):
     < 1.5 GB peak (memory.test.ts:325-326) — CI-enforced there, default-on
     here too. Time-boxed shape: one shared compressible tile + input cache
     (decode-once) + level-1 deflate keep it ~1-2 min even on a loaded host;
-    STITCH_SKIP_BIG_MEMORY_TESTS=1 opts out."""
+    STITCH_TPU_SKIP_BIG_MEMORY_TESTS=1 opts out."""
     tile = gradient_tile_png(1000)
     enable_input_cache()
     try:

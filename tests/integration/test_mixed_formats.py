@@ -9,8 +9,8 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch import concat_to_buffer
-from image_stitch.types import DecoderOptions
+from image_stitch_tpu import concat_to_buffer
+from image_stitch_tpu.types import DecoderOptions
 
 
 def make_png(arr: np.ndarray) -> bytes:
@@ -164,8 +164,8 @@ def test_mixed_16bit_png_with_jpeg():
     samples scale by 257 exactly."""
     import zlib
 
-    from image_stitch import PngHeader, build_png
-    from image_stitch.ops.png_filter import filter_select_band
+    from image_stitch_tpu import PngHeader, build_png
+    from image_stitch_tpu.ops.png_filter import filter_select_band
 
     rng = np.random.default_rng(3)
     arr16 = rng.integers(0, 65536, (16, 16, 4), dtype=np.uint16)
@@ -181,13 +181,13 @@ def test_mixed_16bit_png_with_jpeg():
     )
     jpeg = make_jpeg(gradient(16, 16, 2))
     out = concat_to_buffer({"inputs": [png16, jpeg], "layout": {"columns": 2}})
-    from image_stitch import parse_png_header
+    from image_stitch_tpu import parse_png_header
 
     header = parse_png_header(out)
     assert header.bit_depth == 16
     # Decode our own output and check the JPEG half is PIL's pixels * 257.
-    from image_stitch.codecs.png.decoder import PngDecoder
-    from image_stitch.ops.pixel import convert_band
+    from image_stitch_tpu.codecs.png.decoder import PngDecoder
+    from image_stitch_tpu.ops.pixel import convert_band
 
     dec = PngDecoder(out)
     bands = [

@@ -14,7 +14,7 @@ set'.
 Content classes are chosen to stress the encoders: k-bit banded noise
 (skews literal frequencies), full noise (incompressible; stored blocks +
 literal-run skip), gradients (match-heavy), solids (RLE-extreme), and
-mixes. STITCH_BIG_FUZZ=1 widens the sweep (~500 cases).
+mixes. STITCH_TPU_BIG_FUZZ=1 widens the sweep (~500 cases).
 """
 
 import io
@@ -29,9 +29,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from utils.fixtures import png_from_array
 
-from image_stitch import concat_to_buffer
+from image_stitch_tpu import concat_to_buffer
 
-N_SEEDS = 500 if os.environ.get("STITCH_BIG_FUZZ") else 24
+N_SEEDS = 500 if os.environ.get("STITCH_TPU_BIG_FUZZ") else 24
 
 
 def _content(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -195,8 +195,8 @@ def test_positioned_roundtrip_exact(seed):
     (ops/pixel.composite_band placed back-to-front)."""
     from PIL import Image
 
-    from image_stitch import PositionedImage
-    from image_stitch.ops.pixel import composite_band
+    from image_stitch_tpu import PositionedImage
+    from image_stitch_tpu.ops.pixel import composite_band
 
     rng = np.random.default_rng(12000 + seed)
     cw = int(rng.integers(40, 200))

@@ -10,9 +10,9 @@ import os
 import numpy as np
 import pytest
 
-from image_stitch.codecs.png.decoder import PngDecoder
-from image_stitch.errors import StitchError
-from image_stitch.ops.pixel import convert_band
+from image_stitch_tpu.codecs.png.decoder import PngDecoder
+from image_stitch_tpu.errors import StitchError
+from image_stitch_tpu.ops.pixel import convert_band
 from tests.conftest import PNGSUITE_DIR
 
 

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from image_stitch import concat_to_buffer
+from image_stitch_tpu import concat_to_buffer
 from tests.conftest import PNGSUITE_DIR
 from tests.utils.fixtures import decode_jpeg_pil
 
@@ -41,7 +41,7 @@ def test_mixed_depth_pngsuite_grid_to_jpeg():
 
     # Cross-check one tile region against the PNG pipeline's own RGBA
     # (16-bit inputs force a 16->8 scale for JPEG).
-    from image_stitch import PngDecoder, convert_band
+    from image_stitch_tpu import PngDecoder, convert_band
 
     d = PngDecoder(inputs[1])
     h = d.png_header

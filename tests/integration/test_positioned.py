@@ -5,8 +5,8 @@ scanline-skip correctness :241)."""
 import numpy as np
 import pytest
 
-from image_stitch import PositionedImage, concat_to_buffer
-from image_stitch.ops.pixel import composite_band
+from image_stitch_tpu import PositionedImage, concat_to_buffer
+from image_stitch_tpu.ops.pixel import composite_band
 from tests.utils.fixtures import decode_png_pil, png_from_array, random_rgba
 
 
@@ -206,7 +206,7 @@ def test_positioned_16bit():
             "layout": {},
         }
     )
-    from image_stitch import PngDecoder, convert_band, parse_png_header
+    from image_stitch_tpu import PngDecoder, convert_band, parse_png_header
 
     assert parse_png_header(out).bit_depth == 16
     dec = PngDecoder(out)

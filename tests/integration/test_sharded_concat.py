@@ -11,7 +11,7 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch import concat_to_buffer
+from image_stitch_tpu import concat_to_buffer
 
 from tests.utils.fixtures import decode_png_pil, png_from_array
 
@@ -80,6 +80,25 @@ def test_sharded_jpeg_restart_groups_match_host(tiles, ri):
     assert shard == single
 
 
+def test_mesh_restart_groups_trace_once_across_runs(tiles, monkeypatch):
+    """Encoders on equal meshes share one traced program: a second run over
+    the same mesh re-traces nothing (each re-trace costs seconds on a
+    four-card mesh)."""
+    import image_stitch_tpu.ops.jpeg_entropy_device as E
+
+    traces = []
+    orig = E._pack_dispatch
+    monkeypatch.setattr(
+        E, "_pack_dispatch", lambda *a, **k: traces.append(1) or orig(*a, **k)
+    )
+    kw = {"outputFormat": "jpeg", "jpeg_restart_interval_rows": 1,
+          "jpegQuality": 61}
+    first = _run(tiles, mesh=4, **kw)
+    after_first = len(traces)
+    assert _run(tiles, mesh=4, **kw) == first
+    assert len(traces) == after_first
+
+
 def test_sharded_output_decodes_correctly(tiles):
     """Independent-oracle check: PIL decode of the sharded PNG equals the
     assembled input mosaic."""
@@ -91,7 +110,7 @@ def test_sharded_output_decodes_correctly(tiles):
 
 
 def test_mesh_accepts_mesh_object(tiles):
-    from image_stitch.parallel.mesh import make_mesh
+    from image_stitch_tpu.parallel.mesh import make_mesh
 
     mesh = make_mesh(4)
     out = _run(tiles, mesh=mesh)
@@ -125,7 +144,7 @@ def test_mesh_x_indivisible_row_bytes(tiles):
 
 
 def test_mesh_oversubscription_rejected(tiles):
-    from image_stitch import StitchError
+    from image_stitch_tpu import StitchError
 
     with pytest.raises(StitchError, match="devices"):
         _run(tiles, mesh=64)
@@ -217,7 +236,7 @@ def test_northstar_shape_sharded_streaming_bytes_and_memory():
     20000^2 host memory test (test_memory_streaming.py)."""
     import jax
 
-    from image_stitch import concat_streaming
+    from image_stitch_tpu import concat_streaming
 
     grid, tile, rows = 16, 64, 80  # 1024 px wide, 5120 tall: 40 bands
     t = [png_from_array(noisy_tile(i, w=tile, h=tile)) for i in range(4)]

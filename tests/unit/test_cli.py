@@ -1,4 +1,4 @@
-"""CLI entry point (python -m image_stitch): thin argparse wrapper over
+"""CLI entry point (python -m image_stitch_tpu): thin argparse wrapper over
 concat_to_file — a convenience beyond the reference, which ships library-only."""
 
 import sys
@@ -11,7 +11,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from utils.fixtures import decode_png_pil, png_from_array, random_rgba
 
-from image_stitch.__main__ import main
+from image_stitch_tpu.__main__ import main
 
 
 @pytest.fixture()

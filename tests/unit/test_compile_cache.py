@@ -7,7 +7,7 @@ import sys
 
 import pytest
 
-from image_stitch.ops import device as D
+from image_stitch_tpu.ops import device as D
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -50,7 +50,7 @@ def test_env_dir_receives_compiled_programs(tmp_path):
     no other directory, and compiled programs land in the env's."""
     code = (
         "import jax, jax.numpy as jnp\n"
-        "import image_stitch.ops.device\n"
+        "import image_stitch_tpu.ops.device\n"
         "jax.jit(lambda x: x * 3 + 1)(jnp.arange(8)).block_until_ready()\n"
         "print(jax.config.jax_compilation_cache_dir)\n"
     )

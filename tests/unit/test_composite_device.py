@@ -8,8 +8,8 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch.ops.composite_device import DeviceCompositor
-from image_stitch.ops.pixel import composite_band
+from image_stitch_tpu.ops.composite_device import DeviceCompositor
+from image_stitch_tpu.ops.pixel import composite_band
 
 
 def oracle(canvas, segments):
@@ -79,7 +79,7 @@ def test_random_alpha_bands_match_host_end_to_end():
     the jax backend (device path + tie fallbacks) == host oracle bytes."""
     from PIL import Image
 
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
 
     def sprite(seed, w, h):
         r = np.random.default_rng(seed)
@@ -107,7 +107,7 @@ def test_random_alpha_bands_match_host_end_to_end():
 def test_sharded_positioned_matches_host():
     from PIL import Image
 
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
 
     def sprite(seed, w, h):
         r = np.random.default_rng(seed)

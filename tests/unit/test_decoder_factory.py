@@ -7,7 +7,7 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch import (
+from image_stitch_tpu import (
     DecoderPlugin,
     ImageSource,
     PngDecoder,
@@ -26,7 +26,7 @@ from image_stitch import (
     validate_format,
     validate_positioned_inputs,
 )
-from image_stitch.codecs.factory import LazyImageDecoder
+from image_stitch_tpu.codecs.factory import LazyImageDecoder
 from tests.utils.fixtures import jpeg_from_array, png_from_array, random_rgba
 
 
@@ -96,7 +96,7 @@ def test_no_plugin_for_format_raises():
         create_decoder(JPEG, plugins=[])
     # plugins=[] means no plugins at all -> unknown format error path differs:
     # use a PNG-only list against a JPEG input for the precise message.
-    from image_stitch import png_plugin
+    from image_stitch_tpu import png_plugin
 
     with pytest.raises(StitchError, match="No decoder plugin"):
         create_decoder(JPEG, plugins=[png_plugin()])
@@ -182,8 +182,8 @@ def test_heic_without_backend_raises_clear_error():
     heic-decoder.ts:266-285)."""
     import pytest as _pytest
 
-    from image_stitch import HeicDecoder
-    from image_stitch.codecs.heic import heic_backend_available
+    from image_stitch_tpu import HeicDecoder
+    from image_stitch_tpu.codecs.heic import heic_backend_available
 
     if heic_backend_available():  # pragma: no cover - env without pillow-heif
         _pytest.skip("pillow-heif installed")
@@ -196,7 +196,7 @@ def test_heic_without_backend_raises_clear_error():
 def test_heic_custom_decoder_injection():
     import numpy as _np
 
-    from image_stitch import DecoderOptions, HeicDecoder
+    from image_stitch_tpu import DecoderOptions, HeicDecoder
 
     def fake(data):
         out = _np.zeros((3, 5, 4), _np.uint8)
@@ -219,7 +219,7 @@ def test_non_seekable_stream_decodes():
 
     import numpy as _np
 
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
     from tests.utils.fixtures import png_from_array
 
     png = png_from_array(_np.full((16, 16, 4), 42, _np.uint8))
@@ -303,7 +303,7 @@ def test_create_decoders_dedupe_same_path(tmp_path, monkeypatch):
     is under test."""
     import numpy as np
 
-    monkeypatch.setenv("STITCH_AUTO_CACHE_MB", "0")
+    monkeypatch.setenv("STITCH_TPU_AUTO_CACHE_MB", "0")
     p = tmp_path / "t.png"
     p.write_bytes(png_from_array(random_rgba(12, 12, seed=9)))
     paths = [str(p)] * 5
@@ -326,8 +326,8 @@ def test_auto_cache_shares_one_decode_for_repeated_inputs():
     grid output matches the uncached run byte for byte."""
     import numpy as np
 
-    from image_stitch import concat_to_buffer
-    from image_stitch.codecs.input_cache import CachedDecoder
+    from image_stitch_tpu import concat_to_buffer
+    from image_stitch_tpu.codecs.input_cache import CachedDecoder
 
     tile = png_from_array(random_rgba(192, 192, seed=21))  # above the tiny-PNG group cutoff
     decs = create_decoders([tile, tile, tile])
@@ -343,11 +343,11 @@ def test_auto_cache_shares_one_decode_for_repeated_inputs():
     cached = concat_to_buffer(opts)
     import os
 
-    os.environ["STITCH_AUTO_CACHE_MB"] = "0"
+    os.environ["STITCH_TPU_AUTO_CACHE_MB"] = "0"
     try:
         uncached = concat_to_buffer(opts)
     finally:
-        del os.environ["STITCH_AUTO_CACHE_MB"]
+        del os.environ["STITCH_TPU_AUTO_CACHE_MB"]
     assert cached == uncached
 
 
@@ -356,14 +356,14 @@ def test_auto_cache_respects_budget():
     clone/per-instance path (the streaming memory posture wins)."""
     import os
 
-    from image_stitch.codecs.input_cache import CachedDecoder
+    from image_stitch_tpu.codecs.input_cache import CachedDecoder
 
     tile = png_from_array(random_rgba(192, 192, seed=22))  # 147 KB decoded
-    os.environ["STITCH_AUTO_CACHE_MB"] = "0.05"  # 50 KB budget
+    os.environ["STITCH_TPU_AUTO_CACHE_MB"] = "0.05"  # 50 KB budget
     try:
         decs = create_decoders([tile, tile])
     finally:
-        del os.environ["STITCH_AUTO_CACHE_MB"]
+        del os.environ["STITCH_TPU_AUTO_CACHE_MB"]
     try:
         assert not any(isinstance(d, CachedDecoder) for d in decs)
     finally:

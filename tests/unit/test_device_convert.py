@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from image_stitch.ops.device import convert_band_trace
-from image_stitch.ops.pixel import convert_band
+from image_stitch_tpu.ops.device import convert_band_trace
+from image_stitch_tpu.ops.pixel import convert_band
 
 
 CASES = [
@@ -21,7 +21,7 @@ CASES = [
 @pytest.mark.parametrize("color_type,bit_depth", CASES)
 @pytest.mark.parametrize("target", [8, 16])
 def test_device_convert_matches_oracle(color_type, bit_depth, target):
-    from image_stitch.utils import scanline_byte_length
+    from image_stitch_tpu.utils import scanline_byte_length
 
     rng = np.random.default_rng(color_type * 100 + bit_depth)
     width, h = 23, 5

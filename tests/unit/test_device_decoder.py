@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from image_stitch.codecs.jpeg.device_decoder import DeviceJpegDecoder
-from image_stitch.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+from image_stitch_tpu.codecs.jpeg.device_decoder import DeviceJpegDecoder
+from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
 
 
 def _jpeg(arr: np.ndarray, quality: int = 85, sampling: str = "420") -> bytes:

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from image_stitch.ops.device import JaxBackend, _filter_select_jit, filter_select_trace
-from image_stitch.ops.png_filter import filter_select_band
+from image_stitch_tpu.ops.device import JaxBackend, _filter_select_jit, filter_select_trace
+from image_stitch_tpu.ops.png_filter import filter_select_band
 
 
 @pytest.mark.parametrize("shape", [(16, 512), (13, 260), (64, 1024)])
@@ -38,7 +38,7 @@ def test_filter_select_trace_no_prev():
 def test_filter_select_sharded_matches_oracle(shape):
     """The mesh path (rows over 'band', row bytes over 'x' when they
     divide): bit-identical to the host oracle on the 8-device CPU mesh."""
-    from image_stitch.parallel.mesh import make_mesh
+    from image_stitch_tpu.parallel.mesh import make_mesh
 
     h, w = shape
     rng = np.random.default_rng(h)

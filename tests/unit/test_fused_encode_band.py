@@ -10,8 +10,8 @@ change (e.g. a new SIMD variant) fails loudly.
 import numpy as np
 import pytest
 
-from image_stitch.codecs.jpeg.encoder import StreamingJpegEncoder, encode_jpeg
-from image_stitch.native import native_available
+from image_stitch_tpu.codecs.jpeg.encoder import StreamingJpegEncoder, encode_jpeg
+from image_stitch_tpu.native import native_available
 
 
 def _collect(enc, band):
@@ -97,9 +97,9 @@ def test_restart_mode_unchanged_by_fused_tier():
 @pytest.mark.skipif(not native_available(), reason="native tier unavailable")
 def test_fused_matches_numpy_tier():
     # Cross-tier anchor: full encode via the native fused path equals the
-    # pure-numpy tier (STITCH_NO_NATIVE exercises that path in its own
+    # pure-numpy tier (STITCH_TPU_NO_NATIVE exercises that path in its own
     # suite; here we call the numpy block pipeline directly).
-    from image_stitch.codecs.jpeg import encoder as enc_mod
+    from image_stitch_tpu.codecs.jpeg import encoder as enc_mod
 
     rng = np.random.default_rng(11)
     arr = rng.integers(0, 256, (24, 48, 4), dtype=np.uint8)
@@ -121,9 +121,9 @@ def test_fused_matches_numpy_tier():
 
 @pytest.mark.skipif(not native_available(), reason="native tier unavailable")
 def test_native_420_quant_matches_numpy():
-    from image_stitch.codecs.jpeg.encoder import _band_to_blocks_numpy_420
-    from image_stitch.native import jpeg_quant_band_420_native
-    from image_stitch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu.codecs.jpeg.encoder import _band_to_blocks_numpy_420
+    from image_stitch_tpu.native import jpeg_quant_band_420_native
+    from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
 
     rng = np.random.default_rng(13)
     for q in (50, 85, 95):
@@ -139,7 +139,7 @@ def test_native_420_quant_matches_numpy():
 @pytest.mark.skipif(not native_available(), reason="native tier unavailable")
 @pytest.mark.parametrize("shape", [(32, 64), (48, 100), (20, 30)])
 def test_420_fused_split_numpy_bytes_equal(shape):
-    from image_stitch.codecs.jpeg.encoder import (
+    from image_stitch_tpu.codecs.jpeg.encoder import (
         _band_to_blocks_numpy_420,
     )
 

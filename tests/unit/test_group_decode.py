@@ -10,13 +10,13 @@ import os
 import numpy as np
 import pytest
 
-from image_stitch.codecs.factory import create_decoders
-from image_stitch.codecs.png.group_decode import (
+from image_stitch_tpu.codecs.factory import create_decoders
+from image_stitch_tpu.codecs.png.group_decode import (
     MIN_GROUP,
     plan_group_providers,
 )
-from image_stitch.core import image_header_to_png_header
-from image_stitch.ops.pixel import convert_band
+from image_stitch_tpu.core import image_header_to_png_header
+from image_stitch_tpu.ops.pixel import convert_band
 
 from tests.conftest import PNGSUITE_DIR
 
@@ -27,7 +27,7 @@ def _disable_auto_cache(monkeypatch):
     budgeted decode-once sharing would otherwise absorb the duplicates
     before the group planner ever sees them (production behavior, but
     not what is under test here)."""
-    monkeypatch.setenv("STITCH_AUTO_CACHE_MB", "0")
+    monkeypatch.setenv("STITCH_TPU_AUTO_CACHE_MB", "0")
 
 
 def _suite_paths():
@@ -40,7 +40,7 @@ def _suite_paths():
 
 def _oracle(path, target_depth):
     """Standalone per-tile decode -> convert (the path being replaced)."""
-    from image_stitch.codecs.png.decoder import PngDecoder
+    from image_stitch_tpu.codecs.png.decoder import PngDecoder
 
     dec = PngDecoder(path)
     ih = dec.get_header()
@@ -87,8 +87,8 @@ def test_group_decode_corrupt_member_falls_back_with_attribution():
     """A corrupt member stream fails the WHOLE group decode; every member
     then falls back to the untouched per-tile path, and the corrupt input
     raises with its per-input attribution through the orchestrator."""
-    from image_stitch import concat_to_buffer
-    from image_stitch.errors import StitchError
+    from image_stitch_tpu import concat_to_buffer
+    from image_stitch_tpu.errors import StitchError
     from tests.utils.fixtures import png_from_array
 
     rng = np.random.default_rng(3)
@@ -110,8 +110,8 @@ def test_group_decode_corrupt_member_falls_back_with_attribution():
 def test_grouped_grid_output_identical_to_ungrouped():
     """Whole-pipeline guard: the grid output bytes with grouping active
     equal the output with grouping disabled."""
-    import image_stitch.codecs.png.group_decode as gd
-    from image_stitch import concat_to_buffer
+    import image_stitch_tpu.codecs.png.group_decode as gd
+    from image_stitch_tpu import concat_to_buffer
     from tests.utils.fixtures import png_from_array
 
     rng = np.random.default_rng(4)
@@ -139,8 +139,8 @@ def test_strict_buffers_group_with_full_integrity():
     during the buffer walk and the group inflate checks each tile's
     Adler-32 trailer — the same integrity set as the per-tile strict
     path. Both corruption classes must still be rejected end to end."""
-    from image_stitch import concat_to_buffer
-    from image_stitch.errors import StitchError
+    from image_stitch_tpu import concat_to_buffer
+    from image_stitch_tpu.errors import StitchError
     from tests.utils.fixtures import png_from_array
 
     rng = np.random.default_rng(5)
@@ -184,15 +184,15 @@ def test_batch_deinterlace_matches_single_across_random_shapes():
     deinterlacer for arbitrary dimensions (passes go empty below 5px in
     either axis), depths and color types — including the sub-byte
     pack/unpack fast paths."""
-    from image_stitch.ops.adam7 import (
+    from image_stitch_tpu.ops.adam7 import (
         ADAM7_PASSES,
         adam7_payload_length,
         deinterlace_adam7,
         deinterlace_adam7_batch,
         get_pass_dimensions,
     )
-    from image_stitch.types import PngHeader
-    from image_stitch.utils import scanline_byte_length
+    from image_stitch_tpu.types import PngHeader
+    from image_stitch_tpu.utils import scanline_byte_length
 
     rng = np.random.default_rng(11)
     cases = []
@@ -234,8 +234,8 @@ def test_interlaced_corrupt_member_falls_back_with_attribution():
     input — same contract as the non-interlaced case."""
     import os
 
-    from image_stitch import concat_to_buffer
-    from image_stitch.errors import StitchError
+    from image_stitch_tpu import concat_to_buffer
+    from image_stitch_tpu.errors import StitchError
 
     path = os.path.join(PNGSUITE_DIR, "basi0g08.png")
     with open(path, "rb") as f:

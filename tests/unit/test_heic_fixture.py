@@ -41,13 +41,13 @@ def test_fixture_regenerates_identically():
 
 
 def test_detected_as_heic():
-    from image_stitch.codecs.detect import detect_format
+    from image_stitch_tpu.codecs.detect import detect_format
 
     assert detect_format(_data()) == "heic"
 
 
 def test_header_without_decode():
-    from image_stitch.codecs.heic import HeicDecoder, parse_heic_header
+    from image_stitch_tpu.codecs.heic import HeicDecoder, parse_heic_header
 
     assert parse_heic_header(_data()) == (64, 48)
     hdr = HeicDecoder(_data()).get_header()
@@ -55,8 +55,8 @@ def test_header_without_decode():
 
 
 def test_factory_routes_fixture():
-    from image_stitch.codecs.factory import create_decoder
-    from image_stitch.codecs.registry import get_default_decoder_plugins
+    from image_stitch_tpu.codecs.factory import create_decoder
+    from image_stitch_tpu.codecs.registry import get_default_decoder_plugins
 
     dec = create_decoder(_data(), None, get_default_decoder_plugins())
     hdr = dec.get_header()
@@ -135,11 +135,11 @@ def test_decode_backend_contract():
     """Full pixel decode: pillow-heif if the environment has it (it is not
     installable here — environment forbids installs), else the documented
     clean StitchError naming the remedy."""
-    from image_stitch.codecs.heic import (
+    from image_stitch_tpu.codecs.heic import (
         HeicDecoder,
         heic_backend_available,
     )
-    from image_stitch.errors import StitchError
+    from image_stitch_tpu.errors import StitchError
 
     dec = HeicDecoder(_data())
     if heic_backend_available():  # pragma: no cover - not installable here

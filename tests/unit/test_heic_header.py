@@ -4,8 +4,8 @@ reference's decode-on-header wart (heic-decoder.ts:256-261)."""
 
 import numpy as np
 
-from image_stitch.codecs.heic import HeicDecoder, parse_heic_header
-from image_stitch.types import DecoderOptions
+from image_stitch_tpu.codecs.heic import HeicDecoder, parse_heic_header
+from image_stitch_tpu.types import DecoderOptions
 
 
 def box(btype: bytes, body: bytes) -> bytes:

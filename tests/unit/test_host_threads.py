@@ -14,8 +14,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from utils.fixtures import gradient_png, png_from_array, random_rgba, solid_png
 
-from image_stitch import PositionedImage, concat_to_buffer
-from image_stitch.errors import StitchError
+from image_stitch_tpu import PositionedImage, concat_to_buffer
+from image_stitch_tpu.errors import StitchError
 
 
 def _tiles(n: int, size: int = 96):
@@ -97,7 +97,7 @@ def test_threads_progress_counts_every_input_once():
 
 
 def test_threads_with_shared_input_cache():
-    from image_stitch import disable_input_cache, enable_input_cache
+    from image_stitch_tpu import disable_input_cache, enable_input_cache
 
     tile = png_from_array(random_rgba(64, 64, seed=42))
     try:
@@ -111,11 +111,11 @@ def test_threads_with_shared_input_cache():
 
 
 def test_env_var_enables_threads(monkeypatch):
-    monkeypatch.setenv("STITCH_HOST_THREADS", "3")
+    monkeypatch.setenv("STITCH_TPU_HOST_THREADS", "3")
     tiles = _tiles(4, size=48)
     opts = {"inputs": tiles, "layout": {"columns": 2}}
     via_env = concat_to_buffer(opts)  # host_threads=0 -> env
-    monkeypatch.delenv("STITCH_HOST_THREADS")
+    monkeypatch.delenv("STITCH_TPU_HOST_THREADS")
     assert via_env == concat_to_buffer(opts)
 
 
@@ -151,7 +151,7 @@ def test_parallel_deflate_bit_identical_and_valid():
     across multiple flush boundaries."""
     import zlib
 
-    from image_stitch.native import native_available
+    from image_stitch_tpu.native import native_available
 
     if not native_available():
         pytest.skip("parallel deflate rides the native tier")
@@ -171,7 +171,7 @@ def test_parallel_deflate_bit_identical_and_valid():
     # serial, which would make this test pass vacuously).
     import threading
 
-    from image_stitch.native import NativeDeflator
+    from image_stitch_tpu.native import NativeDeflator
 
     batch_threads: set[str] = set()
     orig = NativeDeflator._compress_batch
@@ -199,7 +199,7 @@ def test_parallel_deflate_bit_identical_and_valid():
 def test_parallel_deflate_streaming_order_preserved():
     """Chunks may be emitted with a lag under the pool, but always in
     order: reassembling the streamed chunks equals the buffered output."""
-    from image_stitch import concat_streaming
+    from image_stitch_tpu import concat_streaming
 
     tiles = _tiles(9, size=200)
     opts = {"inputs": tiles, "layout": {"columns": 3}, "hostThreads": 4}

@@ -9,8 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from image_stitch.codecs.jpeg import libjpeg_exact as oracle
-from image_stitch.ops import jpeg_idct_device as dev
+from image_stitch_tpu.codecs.jpeg import libjpeg_exact as oracle
+from image_stitch_tpu.ops import jpeg_idct_device as dev
 
 
 def _oracle_idct(coefq: np.ndarray) -> np.ndarray:
@@ -222,7 +222,7 @@ def test_decode_rgb_trace_matches_owned_decoder(sampling):
     """Fused device decode trace == the owned host decoder's pixels (which
     are PIL/libjpeg bit-identical by the round-4 contract) on real encoded
     streams at every sampling, including non-MCU-aligned edges."""
-    from image_stitch.codecs.jpeg.owned_decoder import (
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import (
         decode_baseline_jpeg,
         decode_coefficients,
     )
@@ -248,7 +248,7 @@ def test_decode_rgb_trace_matches_owned_decoder(sampling):
 
 
 def test_decode_rgb_trace_gray():
-    from image_stitch.codecs.jpeg.owned_decoder import (
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import (
         decode_baseline_jpeg,
         decode_coefficients,
     )
@@ -275,7 +275,7 @@ def test_decode_rgb_trace_gray():
 def test_ycbcr_int_packed_matches_interleaved():
     """The encoder-side packed ingest (ycbcr_int on (H, W) uint32 bands)
     must equal the interleaved form channel for channel."""
-    from image_stitch.ops.jpeg_dct import ycbcr_int
+    from image_stitch_tpu.ops.jpeg_dct import ycbcr_int
 
     rng = np.random.default_rng(21)
     rgba = rng.integers(0, 256, (24, 40, 4), dtype=np.uint8)
@@ -292,7 +292,7 @@ def test_ycbcr_int_packed_matches_interleaved():
 def test_decode_band_trace_packed_is_bitcast_of_rgba(gray):
     """_decode_band_trace(packed=True) must be the exact little-endian
     uint32 pack of the RGBA output (same bytes, no relayout drift)."""
-    from image_stitch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    from image_stitch_tpu.codecs.jpeg.device_decoder import DeviceJpegDecoder
     import io
 
     from PIL import Image

@@ -13,8 +13,8 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch.codecs.jpeg import libjpeg_exact as le
-from image_stitch.native import (
+from image_stitch_tpu.codecs.jpeg import libjpeg_exact as le
+from image_stitch_tpu.native import (
     jpeg_fancy_upsample_native,
     jpeg_idct_plane_native,
     jpeg_ycc_rgb_native,
@@ -71,7 +71,7 @@ def test_owned_decode_bit_identical_to_pil_all_samplings():
     bit-identity contract (CLAUDE.md round-2 exactness facts)."""
     from PIL import Image
 
-    import image_stitch.codecs.jpeg.owned_decoder as od
+    import image_stitch_tpu.codecs.jpeg.owned_decoder as od
 
     rng = np.random.default_rng(11)
     x = np.linspace(0, 6, 131)
@@ -107,7 +107,7 @@ def test_native_progressive_scan_matches_python_and_pil():
     desync (DC-refine scans drain the bit buffer to exactly 0)."""
     from PIL import Image
 
-    import image_stitch.codecs.jpeg.owned_decoder as od
+    import image_stitch_tpu.codecs.jpeg.owned_decoder as od
 
     rng = np.random.default_rng(5)
     x = np.linspace(0, 6, 64)

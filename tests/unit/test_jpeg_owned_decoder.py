@@ -6,8 +6,8 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch.codecs.jpeg.owned_decoder import decode_baseline_jpeg
-from image_stitch.errors import StitchError
+from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+from image_stitch_tpu.errors import StitchError
 
 
 def smooth(w, h, seed=0):
@@ -47,7 +47,7 @@ def test_decode_pil_encoded(sampling):
 
 
 def test_decode_own_encoder_output():
-    from image_stitch.codecs.jpeg.encoder import encode_jpeg
+    from image_stitch_tpu.codecs.jpeg.encoder import encode_jpeg
 
     arr4 = np.dstack([smooth(64, 48), np.full((48, 64), 255, np.uint8)])
     data = encode_jpeg(arr4, 64, 48, quality=92)
@@ -140,8 +140,8 @@ def test_invalid_data_rejected():
 
 
 def test_force_owned_tier_through_decoder():
-    from image_stitch.codecs.jpeg.decoder import JpegDecoder
-    from image_stitch.types import DecoderOptions
+    from image_stitch_tpu.codecs.jpeg.decoder import JpegDecoder
+    from image_stitch_tpu.types import DecoderOptions
 
     arr = smooth(40, 24, 5)
     data = pil_jpeg(arr, quality=92, subsampling=0)
@@ -229,7 +229,7 @@ def test_gray_subsampled_single_component_scans_match_pil():
     cadence). Covers baseline + progressive, with and without restarts."""
     from PIL import Image
 
-    import image_stitch.codecs.jpeg.owned_decoder as od
+    import image_stitch_tpu.codecs.jpeg.owned_decoder as od
 
     rng = np.random.default_rng(3)
     for h, w, kw in (
@@ -253,7 +253,7 @@ def test_narrow_subsampled_images_use_replication_upsample():
     subsampled images replicate instead. Session-5 soak find."""
     from PIL import Image
 
-    import image_stitch.codecs.jpeg.owned_decoder as od
+    import image_stitch_tpu.codecs.jpeg.owned_decoder as od
 
     rng = np.random.default_rng(4)
     for w in (1, 2, 3, 4):
@@ -294,7 +294,7 @@ def _jpeg_bit_writer():
 
 def _encode_block(put, blk, pred, dc_codes, ac_codes):
     """Encode one natural-order coefficient block (T.81 F.1.2)."""
-    from image_stitch.codecs.jpeg.tables import ZIGZAG
+    from image_stitch_tpu.codecs.jpeg.tables import ZIGZAG
 
     def magnitude(v):
         size = int(abs(v)).bit_length()
@@ -340,7 +340,7 @@ def test_multi_scan_sequential_baseline_matches_pil():
 
     from PIL import Image
 
-    from image_stitch.codecs.jpeg.tables import (
+    from image_stitch_tpu.codecs.jpeg.tables import (
         STD_AC_LUMA_BITS, STD_AC_LUMA_VALS, STD_DC_LUMA_BITS,
         STD_DC_LUMA_VALS, ZIGZAG, build_huffman_codes,
     )
@@ -391,7 +391,7 @@ def test_multi_scan_sequential_baseline_matches_pil():
     out += b"\xff\xd9"
     data = bytes(out)
 
-    from image_stitch.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
 
     pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
     own = decode_baseline_jpeg(data)

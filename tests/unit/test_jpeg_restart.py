@@ -11,8 +11,8 @@ import io
 import numpy as np
 import pytest
 
-from image_stitch.codecs.jpeg.encoder import StreamingJpegEncoder
-from image_stitch.errors import StitchError
+from image_stitch_tpu.codecs.jpeg.encoder import StreamingJpegEncoder
+from image_stitch_tpu.errors import StitchError
 
 
 def make_image(w=96, h=80, seed=1):
@@ -111,7 +111,7 @@ def test_owned_decoder_roundtrip():
     restart stream gives exactly the same pixels as the non-restart stream
     (coefficients identical; only entropy framing differs). PIL stays within
     its known <=2 IDCT rounding envelope vs the owned IDCT."""
-    from image_stitch.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
     from PIL import Image
 
     base = decode_baseline_jpeg(encode(IMG, 0))
@@ -156,7 +156,7 @@ def test_negative_interval_rejected():
 
 
 def test_concat_option_plumbing():
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
     from tests.utils.fixtures import png_from_array
 
     tile = png_from_array(IMG)

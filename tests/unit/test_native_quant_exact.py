@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from image_stitch import native
-from image_stitch.codecs.jpeg.tables import quality_scaled_tables
-from image_stitch.ops.jpeg_dct import band_to_blocks_islow
+from image_stitch_tpu import native
+from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
+from image_stitch_tpu.ops.jpeg_dct import band_to_blocks_islow
 
 pytestmark = pytest.mark.skipif(
     native.get_native_lib() is None, reason="native tier unavailable"

@@ -3,8 +3,8 @@ here, absent in the reference)."""
 
 import numpy as np
 
-from image_stitch import CoreStreamingConcatenator
-from image_stitch.utils.observability import PipelineStats, device_trace
+from image_stitch_tpu import CoreStreamingConcatenator
+from image_stitch_tpu.utils.observability import PipelineStats, device_trace
 from tests.utils.fixtures import png_from_array, random_rgba
 
 
@@ -32,7 +32,7 @@ def test_stats_stage_timer():
 
 
 def test_device_trace_noop_without_dir(monkeypatch):
-    monkeypatch.delenv("STITCH_TRACE_DIR", raising=False)
+    monkeypatch.delenv("STITCH_TPU_TRACE_DIR", raising=False)
     with device_trace():
         x = 1 + 1
     assert x == 2
@@ -51,7 +51,7 @@ def test_jpeg_stats():
 def test_deflate_strategies_roundtrip():
     import zlib
 
-    from image_stitch import StreamingDeflator
+    from image_stitch_tpu import StreamingDeflator
 
     data = bytes(range(256)) * 100
     for strategy in ("default", "filtered", "rle", "huffman"):
@@ -63,7 +63,7 @@ def test_deflate_strategies_roundtrip():
 
 
 def test_deflate_strategy_affects_output():
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
     from tests.utils.fixtures import decode_png_pil
 
     tile = random_rgba(64, 64, 3)

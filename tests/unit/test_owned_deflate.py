@@ -9,11 +9,11 @@ import zlib
 import numpy as np
 import pytest
 
-from image_stitch.io.deflate import StreamingDeflator
+from image_stitch_tpu.io.deflate import StreamingDeflator
 
 pytestmark = pytest.mark.skipif(
     not __import__(
-        "image_stitch.native", fromlist=["native_deflater_available"]
+        "image_stitch_tpu.native", fromlist=["native_deflater_available"]
     ).native_deflater_available(),
     reason="native tier unavailable",
 )
@@ -117,7 +117,7 @@ def test_incompressible_bounded_overhead():
 
 
 def test_owned_inflate_reads_owned_deflate():
-    from image_stitch.io.inflate import StreamingInflator
+    from image_stitch_tpu.io.inflate import StreamingInflator
 
     rng = np.random.default_rng(15)
     raw = rng.integers(0, 16, 250000, dtype=np.uint8).tobytes()
@@ -151,7 +151,7 @@ def test_png_output_decodes_with_pil():
     PIL = pytest.importorskip("PIL.Image")
     import io
 
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
     from tests.utils.fixtures import png_from_array, random_rgba
 
     tiles = [png_from_array(random_rgba(40, 40, s)) for s in range(4)]
@@ -174,7 +174,7 @@ def test_deep_tree_length_limit_valid():
     Exponentially skewed symbol frequencies force the deep-tree path."""
     rng = np.random.default_rng(9)
     # ~exponential frequency decay across many symbols -> tree depth >> 15
-    from image_stitch.native import NativeDeflator
+    from image_stitch_tpu.native import NativeDeflator
 
     counts = np.maximum(1, (2.0 ** (np.arange(80) / 3.0))).astype(np.int64)[::-1]
     syms = np.repeat(np.arange(80, dtype=np.uint8) * 3 + 7, counts)
@@ -191,7 +191,7 @@ def test_noise_tile_band_stream_valid():
     """Regression: the exact content class that hit the over-subscription in
     production — filtered bands of banded 6-bit noise — through the
     multi-batch sync-flush cadence."""
-    from image_stitch.native import NativeDeflator
+    from image_stitch_tpu.native import NativeDeflator
 
     rng = np.random.default_rng(9)
     raw = (rng.integers(0, 64, 4 << 20) + 96).astype(np.uint8).tobytes()
@@ -209,7 +209,7 @@ def test_compress_streaming_generator_wrapper():
     incremental chunks in, valid zlib stream out, equal to one-shot."""
     import numpy as np
 
-    from image_stitch.io.deflate import compress_streaming
+    from image_stitch_tpu.io.deflate import compress_streaming
 
     rng = np.random.default_rng(2)
     raw = rng.integers(0, 128, 3 << 20, dtype=np.uint8).tobytes()
@@ -227,7 +227,7 @@ def test_chunked_compress_identical_to_one_shot():
 
     import numpy as np
 
-    from image_stitch.native import NativeDeflator, native_available
+    from image_stitch_tpu.native import NativeDeflator, native_available
 
     if not native_available():
         import pytest

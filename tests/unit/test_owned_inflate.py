@@ -7,10 +7,10 @@ import zlib
 import numpy as np
 import pytest
 
-from image_stitch.errors import StitchError
+from image_stitch_tpu.errors import StitchError
 
-pytest.importorskip("image_stitch.native")
-from image_stitch.native import NativeInflater, native_available
+pytest.importorskip("image_stitch_tpu.native")
+from image_stitch_tpu.native import NativeInflater, native_available
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native toolchain unavailable"
@@ -124,7 +124,7 @@ def test_push_after_finish_rejected():
 
 
 def test_streaming_inflator_dispatches_to_native():
-    from image_stitch.io.inflate import StreamingInflator
+    from image_stitch_tpu.io.inflate import StreamingInflator
 
     inf = StreamingInflator()
     assert isinstance(inf, NativeInflater)
@@ -133,7 +133,7 @@ def test_streaming_inflator_dispatches_to_native():
 
 
 def test_strict_mode_verifies_adler():
-    from image_stitch.io.inflate import StreamingInflator
+    from image_stitch_tpu.io.inflate import StreamingInflator
 
     # Corrupt the Adler-32 trailer: strict catches it, lenient doesn't.
     comp = bytearray(zlib.compress(b"adler check payload", 6))
@@ -224,7 +224,7 @@ def test_strict_mode_native_verifies_adler():
     trailer, the wrapper checks it against a zlib.adler32 accumulation.
     Both the push and the drain_into surfaces must verify, and a corrupted
     trailer must raise while default mode (chunk-CRC-covered) stays lax."""
-    from image_stitch.io.inflate import StreamingInflator
+    from image_stitch_tpu.io.inflate import StreamingInflator
 
     rng = np.random.default_rng(4)
     raw = rng.integers(0, 64, 1 << 18, dtype=np.uint8).tobytes()
@@ -262,7 +262,7 @@ def test_verify_crc_reachable_from_public_options():
 
     from PIL import Image
 
-    from image_stitch import concat_to_buffer
+    from image_stitch_tpu import concat_to_buffer
 
     rng = np.random.default_rng(6)
     arr = rng.integers(0, 255, (40, 40, 4)).astype(np.uint8)
@@ -296,7 +296,7 @@ def test_buffer_pool_reentrant_from_finalizer():
 
     import numpy as np
 
-    from image_stitch.native import BufferPool
+    from image_stitch_tpu.native import BufferPool
 
     pool = BufferPool()
 

@@ -1,14 +1,19 @@
 """The phase-1 pack kernel (ops/pallas_kernels.py): in Pallas interpret
 mode on the CPU it must match the plain XLA form bit for bit; compiled for
-the GPU, the `gpu` test does the same at a real band width."""
+the GPU, the `gpu` test does the same at a real band width. _pack_dispatch
+picks the kernel on a GPU and the XLA form elsewhere, and shards the
+blocks over a mesh."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from image_stitch.ops.jpeg_entropy_device import _pack_blocks_aligned
-from image_stitch.ops.pallas_kernels import PACK_LANES, pack_blocks_aligned_pallas
+from jax.sharding import Mesh
+
+from image_stitch_tpu.ops import pallas_kernels as PK
+from image_stitch_tpu.ops.jpeg_entropy_device import _pack_blocks_aligned, _pack_dispatch
+from image_stitch_tpu.ops.pallas_kernels import PACK_LANES, pack_blocks_aligned_pallas
 
 
 def _streams(nb, n_sym, lw, seed):
@@ -67,11 +72,65 @@ def test_pack_kernel_encoder_budgets(lw):
 
 
 def test_pack_kernel_interprets_off_the_gpu():
-    """interpret=None interprets on the CPU instead of failing to compile."""
+    """interpret=True runs the kernel in the Pallas interpreter on the CPU."""
     codes, lens, starts = _streams(40, 65, 12, 9)
     ref = np.asarray(_pack_blocks_aligned(codes, lens, starts, 12, transpose=False))
-    got = np.asarray(pack_blocks_aligned_pallas(codes, lens, starts, 12))
+    got = np.asarray(pack_blocks_aligned_pallas(codes, lens, starts, 12, interpret=True))
     np.testing.assert_array_equal(ref, got)
+
+
+def _kernel_on_gpu(monkeypatch, calls):
+    """Pretend the default backend is a GPU; the kernel runs interpreted."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+
+    def interpreted(codes, lens, starts, local_words):
+        calls.append(codes.shape[0])
+        return pack_blocks_aligned_pallas(codes, lens, starts, local_words,
+                                          interpret=True)
+
+    monkeypatch.setattr(PK, "pack_blocks_aligned_pallas", interpreted)
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+def test_pack_dispatch_off_the_gpu_is_the_xla_form(monkeypatch, transpose):
+    def no_kernel(*a, **k):
+        raise AssertionError("the Triton kernel was called off the GPU")
+
+    monkeypatch.setattr(PK, "pack_blocks_aligned_pallas", no_kernel)
+    codes, lens, starts = _streams(300, 65, 12, 5)
+    ref = _pack_blocks_aligned(codes, lens, starts, 12, transpose=transpose)
+    got = _pack_dispatch(codes, lens, starts, 12, transpose=transpose)
+    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
+
+
+def test_pack_dispatch_on_the_gpu_calls_the_kernel(monkeypatch):
+    calls = []
+    _kernel_on_gpu(monkeypatch, calls)
+    codes, lens, starts = _streams(300, 65, 12, 6)
+    ref = _pack_blocks_aligned(codes, lens, starts, 12)
+    got = _pack_dispatch(codes, lens, starts, 12)
+    assert calls == [300]
+    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
+
+
+def _mesh4():
+    return Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("band", "x"))
+
+
+@pytest.mark.parametrize("form", ["xla", "kernel"])
+@pytest.mark.parametrize("nb,per_device", [(1024, 256), (1022, 1022)])
+def test_pack_dispatch_shards_blocks_over_a_mesh(monkeypatch, form, nb, per_device):
+    """With a mesh each device packs nb / mesh.size blocks (whole-array
+    fallback when nb does not divide); the words are unchanged."""
+    calls = []
+    if form == "kernel":
+        _kernel_on_gpu(monkeypatch, calls)
+    codes, lens, starts = _streams(nb, 65, 12, nb)
+    ref = _pack_blocks_aligned(codes, lens, starts, 12, transpose=False)
+    got = _pack_dispatch(codes, lens, starts, 12, transpose=False, mesh=_mesh4())
+    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
+    if form == "kernel":
+        assert calls and set(calls) == {per_device}
 
 
 @pytest.mark.gpu

@@ -8,14 +8,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from image_stitch.codecs.jpeg.tables import quality_scaled_tables
-from image_stitch.ops.fused import (
+from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
+from image_stitch_tpu.ops.fused import (
     assemble_uniform_grid,
     fused_grid_dual_step,
     fused_grid_jpeg_step,
     fused_grid_png_step,
 )
-from image_stitch.parallel.mesh import (
+from image_stitch_tpu.parallel.mesh import (
     make_mesh,
     run_multichip_demo,
     shard_grid_dual_step,
@@ -96,7 +96,7 @@ def test_multichip_demo_scales_tile_grid_to_mesh(n):
     (band, x) factoring make_mesh picks — n=6 factors as (2, 3), which the
     old fixed gy=2/gx=8 demo could not shard (fuzz-found at n=16: gy=2 vs
     band=4)."""
-    from image_stitch.parallel.mesh import run_multichip_demo
+    from image_stitch_tpu.parallel.mesh import run_multichip_demo
 
     out = run_multichip_demo(n, gy=2, gx=8, th=16, tw=16)
     assert out is not None

@@ -4,8 +4,8 @@ alpha-blending.test.ts truth tables)."""
 import numpy as np
 import pytest
 
-from image_stitch.errors import StitchError
-from image_stitch.ops.pixel import (
+from image_stitch_tpu.errors import StitchError
+from image_stitch_tpu.ops.pixel import (
     background_pixel,
     band_to_bytes,
     bytes_to_band,
@@ -19,7 +19,7 @@ from image_stitch.ops.pixel import (
     parse_background_color,
     scale_sample,
 )
-from image_stitch.types import PngHeader
+from image_stitch_tpu.types import PngHeader
 
 
 # --- background color parsing (reference pixel-ops.ts:8-91) -----------------
@@ -267,7 +267,7 @@ def test_native_rgba_expanders_match_numpy_all_sizes():
     stitch_gray_to_rgba) are exact vs the numpy expansion across sizes that
     cover the vector main loop, the 10-px overread guard, and the scalar
     tail (reference convertScanline RGB/gray arms, pixel-ops.ts:496-560)."""
-    from image_stitch.native import expand_to_rgba_native, native_available
+    from image_stitch_tpu.native import expand_to_rgba_native, native_available
 
     if not native_available():
         pytest.skip("native tier disabled")
@@ -306,7 +306,7 @@ def test_jpeg_pil_tier_native_expand_matches_pil_convert():
 
     from PIL import Image
 
-    from image_stitch.codecs.jpeg.decoder import decode_jpeg_to_rgba
+    from image_stitch_tpu.codecs.jpeg.decoder import decode_jpeg_to_rgba
 
     rng = np.random.default_rng(9)
     cases = []

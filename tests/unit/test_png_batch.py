@@ -5,7 +5,7 @@ jsdom-scenario.test.ts dependency injection, :62-157)."""
 import numpy as np
 import pytest
 
-from image_stitch import (
+from image_stitch_tpu import (
     DecoderOptions,
     PngHeader,
     StitchError,
@@ -42,7 +42,7 @@ def test_compress_image_data_roundtrip():
     arr = random_rgba(16, 8, 2)
     header = PngHeader(width=16, height=8, bit_depth=8, color_type=6)
     compressed = compress_image_data(arr.reshape(8, 64), header)
-    from image_stitch import build_png
+    from image_stitch_tpu import build_png
 
     png = build_png(header, compressed)
     np.testing.assert_array_equal(decode_png_pil(png), arr)

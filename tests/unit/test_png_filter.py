@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from image_stitch.ops.png_filter import (
+from image_stitch_tpu.ops.png_filter import (
     FilterType,
     filter_scanline,
     filter_select_band,

@@ -4,22 +4,22 @@ png-writer.test.ts)."""
 import numpy as np
 import pytest
 
-from image_stitch.codecs.png.parser import (
+from image_stitch_tpu.codecs.png.parser import (
     iter_chunks,
     parse_png_chunks,
     parse_png_header,
     read_chunk,
 )
-from image_stitch.codecs.png.writer import (
+from image_stitch_tpu.codecs.png.writer import (
     build_png,
     create_chunk,
     create_ihdr,
     create_iend,
     serialize_chunk,
 )
-from image_stitch.errors import StitchError
-from image_stitch.types import PngHeader
-from image_stitch.utils import PNG_SIGNATURE, png_crc32
+from image_stitch_tpu.errors import StitchError
+from image_stitch_tpu.types import PngHeader
+from image_stitch_tpu.utils import PNG_SIGNATURE, png_crc32
 
 
 def make_png(width=4, height=3, bit_depth=8, color_type=6):
@@ -104,8 +104,8 @@ def test_buffer_decoder_verifies_crc_by_default():
     png-decoder.ts:359); an explicit verify_crc=False opts out."""
     import numpy as np
 
-    from image_stitch.codecs.png.decoder import PngDecoder
-    from image_stitch.errors import StitchError
+    from image_stitch_tpu.codecs.png.decoder import PngDecoder
+    from image_stitch_tpu.errors import StitchError
     from tests.utils.fixtures import png_from_array
 
     rng = np.random.default_rng(7)
@@ -135,8 +135,8 @@ def test_file_decoder_stays_lenient_by_default(tmp_path):
     on the streaming hot path); explicit verify_crc=True still rejects."""
     import numpy as np
 
-    from image_stitch.codecs.png.decoder import PngDecoder
-    from image_stitch.errors import StitchError
+    from image_stitch_tpu.codecs.png.decoder import PngDecoder
+    from image_stitch_tpu.errors import StitchError
     from tests.utils.fixtures import png_from_array
 
     rng = np.random.default_rng(8)

@@ -4,7 +4,7 @@ XLA keeps one executable per distinct jitted input shape; the round-3
 mesh soak drove an adversarial mixed-shape device stream into an LLVM
 "Cannot allocate memory" abort and mitigated it manually with periodic
 jax.clear_caches(). These tests pin the automatic production mitigation:
-past STITCH_PROGRAM_CACHE_LIMIT distinct program signatures the
+past STITCH_TPU_PROGRAM_CACHE_LIMIT distinct program signatures the
 registry flushes the jit caches, and a mixed-shape encode stream stays
 byte-exact across flushes.
 """
@@ -12,11 +12,11 @@ byte-exact across flushes.
 import numpy as np
 import pytest
 
-from image_stitch.ops import program_cache
+from image_stitch_tpu.ops import program_cache
 
 
 def test_note_program_flushes_past_limit(monkeypatch):
-    monkeypatch.setenv("STITCH_PROGRAM_CACHE_LIMIT", "4")
+    monkeypatch.setenv("STITCH_TPU_PROGRAM_CACHE_LIMIT", "4")
     monkeypatch.setattr(program_cache, "_seen", set())
     flushes = []
     import jax
@@ -41,7 +41,7 @@ def test_note_program_flushes_past_limit(monkeypatch):
 
 
 def test_note_program_disabled(monkeypatch):
-    monkeypatch.setenv("STITCH_PROGRAM_CACHE_LIMIT", "0")
+    monkeypatch.setenv("STITCH_TPU_PROGRAM_CACHE_LIMIT", "0")
     monkeypatch.setattr(program_cache, "_seen", set())
     for i in range(50):
         program_cache.note_program("q", i)
@@ -53,9 +53,9 @@ def test_mixed_shape_device_stream_flushes_and_stays_exact(monkeypatch):
     through the fused device encoder must trigger automatic cache flushes
     (no manual jax.clear_caches in user code) and keep every stream
     byte-identical to the host backend."""
-    from image_stitch.codecs.jpeg.encoder import StreamingJpegEncoder
+    from image_stitch_tpu.codecs.jpeg.encoder import StreamingJpegEncoder
 
-    monkeypatch.setenv("STITCH_PROGRAM_CACHE_LIMIT", "6")
+    monkeypatch.setenv("STITCH_TPU_PROGRAM_CACHE_LIMIT", "6")
     monkeypatch.setattr(program_cache, "_seen", set())
     before = program_cache.flush_count()
 

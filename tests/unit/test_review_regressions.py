@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from image_stitch.core import ProgressTracker
-from image_stitch.types import PngHeader
+from image_stitch_tpu.core import ProgressTracker
+from image_stitch_tpu.types import PngHeader
 
 
 def _hdr(h):
@@ -41,7 +41,7 @@ def test_progress_callback_may_reenter_tracker():
 
 
 def test_encode_band_accepts_nested_lists():
-    from image_stitch.codecs.jpeg.encoder import StreamingJpegEncoder
+    from image_stitch_tpu.codecs.jpeg.encoder import StreamingJpegEncoder
 
     rng = np.random.default_rng(1)
     arr = rng.integers(0, 256, (16, 16, 4), dtype=np.uint8)
@@ -54,8 +54,8 @@ def test_encode_band_accepts_nested_lists():
 
 
 def test_path_inputs_stay_out_of_input_cache(tmp_path):
-    from image_stitch.codecs import input_cache
-    from image_stitch.codecs.factory import create_decoder
+    from image_stitch_tpu.codecs import input_cache
+    from image_stitch_tpu.codecs.factory import create_decoder
 
     img = tmp_path / "tile.png"
     buf = io.BytesIO()
@@ -77,8 +77,8 @@ def test_path_inputs_stay_out_of_input_cache(tmp_path):
 
 
 def test_buffer_inputs_still_cache(tmp_path):
-    from image_stitch.codecs import input_cache
-    from image_stitch.codecs.factory import create_decoder
+    from image_stitch_tpu.codecs import input_cache
+    from image_stitch_tpu.codecs.factory import create_decoder
 
     buf = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 4), np.uint8)).save(buf, "PNG")
@@ -110,7 +110,7 @@ def test_stream_bands_matches_encoded_output_grid():
 
     rng = np.random.default_rng(17)
     tiles = [rng.integers(0, 256, (16, 16, 4), dtype=np.uint8) for _ in range(4)]
-    from image_stitch import concat_arrays, concat_to_buffer
+    from image_stitch_tpu import concat_arrays, concat_to_buffer
 
     arr = concat_arrays(tiles, layout={"columns": 2})
     png = concat_to_buffer({"inputs": tiles, "layout": {"columns": 2}})
@@ -122,8 +122,8 @@ def test_stream_bands_matches_encoded_output_grid():
 def test_stream_bands_matches_encoded_output_positioned():
     from PIL import Image
 
-    from image_stitch import PositionedImage
-    from image_stitch.core import CoreStreamingConcatenator
+    from image_stitch_tpu import PositionedImage
+    from image_stitch_tpu.core import CoreStreamingConcatenator
 
     rng = np.random.default_rng(19)
     bg = rng.integers(0, 256, (24, 32, 4), dtype=np.uint8)
@@ -145,8 +145,8 @@ def test_stream_bands_matches_encoded_output_positioned():
 def test_stream_bands_16bit_depth():
     import zlib
 
-    from image_stitch import PngHeader, build_png
-    from image_stitch.core import CoreStreamingConcatenator
+    from image_stitch_tpu import PngHeader, build_png
+    from image_stitch_tpu.core import CoreStreamingConcatenator
 
     rng = np.random.default_rng(23)
     a16 = rng.integers(0, 65536, (8, 8, 4), dtype=np.uint16)

@@ -12,8 +12,8 @@ import zlib
 
 import numpy as np
 
-from image_stitch.codecs.png.writer import build_png
-from image_stitch.types import PngHeader
+from image_stitch_tpu.codecs.png.writer import build_png
+from image_stitch_tpu.types import PngHeader
 
 
 def png_from_array(arr: np.ndarray, bit_depth: int = 8, color_type: int | None = None) -> bytes:

@@ -13,7 +13,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
 
-from image_stitch import PositionedImage, concat_to_buffer
+from image_stitch_tpu import PositionedImage, concat_to_buffer
 from tests.utils.fixtures import gradient_png, png_from_array, random_rgba, solid_png
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
